@@ -2,7 +2,7 @@
 File-batch destriping (legacy TIFF/PNG/RAW path; reference surface:
 code/aind_smartspim_destripe/destriper.py).
 
-TPU-first redesign of the execution model: instead of a multiprocessing.Pool
+Device-first redesign of the execution model: instead of a multiprocessing.Pool
 where each process filters one image on CPU, files are read by IO threads,
 grouped by geometry, destriped on device in batches, and written by IO
 threads. ``workers`` bounds the IO thread pool; ``chunks`` maps to the device

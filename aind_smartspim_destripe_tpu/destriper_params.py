@@ -41,7 +41,7 @@ class DestripingParams:
     @staticmethod
     def parser() -> argparse.ArgumentParser:
         p = argparse.ArgumentParser(
-            description="SmartSPIM TPU destriper (file-batch mode)"
+            description="SmartSPIM destriper (file-batch mode)"
         )
         p.add_argument("--input_path", required=True,
                        help="Path to the input directory of images")

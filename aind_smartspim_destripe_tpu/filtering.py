@@ -1,7 +1,7 @@
 """
 Drop-in filtering API (reference surface: code/aind_smartspim_destripe/
-filtering.py). numpy in / numpy out; the heavy math runs on the TPU kernels
-in ``ops``.
+filtering.py). numpy in / numpy out; the heavy math runs on the device
+graph in ``ops``.
 
 A reference user can swap ``from aind_smartspim_destripe import filtering``
 for ``from aind_smartspim_destripe_tpu import filtering`` and keep calling
@@ -78,7 +78,7 @@ def log_space_fft_filtering(
     max_threshold: Optional[int] = 4,
 ) -> np.ndarray:
     """Log-space wavelet-FFT destripe of one plane (reference
-    filtering.py:139-224), TPU-executed."""
+    filtering.py:139-224), device-executed."""
     return _log_space_fft_filtering(
         input_image, wavelet=wavelet, level=level, sigma=sigma,
         max_threshold=max_threshold,

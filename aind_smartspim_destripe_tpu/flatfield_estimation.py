@@ -6,7 +6,7 @@ Same three-function API — ``shading_correction`` (fit the shading model over
 destriped tiles), ``unify_fields`` (median/mean/mip combination, float16
 cast), ``slide_flat_estimation`` (walk the SmartSPIM col/row tree, destripe
 each tile, fit per slide) — with the BaSiCPy dependency replaced by the
-TPU-native BaSiC model in models/basic.py.
+in-repo JAX BaSiC model in models/basic.py.
 """
 
 from __future__ import annotations
@@ -84,7 +84,7 @@ def slide_flat_estimation(
     tree (reference flatfield_estimation.py:125-196 surface). ``dict_struct``
     is the utils.read_image_directory_structure output.
 
-    TPU-first execution: the reference destriped each tile with its own
+    Device execution: the reference destriped each tile with its own
     per-plane call; here every tile of a slide is read by IO threads and
     destriped as ONE device batch through the compiled kernel (the tiles of
     a SmartSPIM slide share geometry), then fit."""

@@ -519,30 +519,51 @@ def decompress_py(frame: bytes | memoryview) -> bytes:
 _native = None
 
 
+def _native_stale(so: str, src_dir: str) -> bool:
+    """True when the native library must be (re)built: it is missing, or a
+    tracked source (``*.cpp``, ``Makefile``) is newer than it."""
+    if not os.path.exists(so):
+        return True
+    built = os.path.getmtime(so)
+    return any(
+        os.path.getmtime(os.path.join(src_dir, f)) > built
+        for f in os.listdir(src_dir)
+        if f.endswith(".cpp") or f == "Makefile"
+    )
+
+
 def _load_native():
     global _native
-    if _native is not None:
-        return _native
-    here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    so = os.path.join(here, "csrc", "libdestripe_runtime.so")
-    if not os.path.exists(so):
-        # Best-effort one-time build (g++ + libzstd are part of the image);
-        # the pure-python codec remains the fallback.
+    if _native is None:
+        here = os.path.dirname(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        )
+        _native = _load_from(os.path.join(here, "csrc"))
+    return _native
+
+
+def _load_from(src_dir: str):
+    """The native codec library built from ``src_dir`` (rebuilt with
+    ``make -B`` when stale, on this host, with g++ + libzstd; ``make``
+    reads ``CXXFLAGS`` from the environment), bound via ctypes; False when
+    it cannot be built or loaded (the pure-python codec then takes over)."""
+    so = os.path.join(src_dir, "libdestripe_runtime.so")
+    has_src = os.path.isdir(src_dir)
+    if has_src and _native_stale(so, src_dir):
         import subprocess
 
         try:
-            subprocess.run(
-                ["make", "-C", os.path.join(here, "csrc")],
-                capture_output=True,
-                timeout=120,
-                check=False,
-            )
-        except Exception:
+            subprocess.run(["make", "-C", src_dir, "-B"], capture_output=True,
+                           timeout=120, check=False)
+        except (OSError, subprocess.SubprocessError):
             pass
-    if not os.path.exists(so):
-        _native = False
+    if not os.path.exists(so) or (has_src and _native_stale(so, src_dir)):
         return False
-    lib = ctypes.CDLL(so)
+    return _bind(ctypes.CDLL(so))
+
+
+def _bind(lib):
+    """Declare the C signatures of the native codec library ``lib``."""
     lib.blosc1_compress.restype = ctypes.c_longlong
     lib.blosc1_compress.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
@@ -581,8 +602,16 @@ def _load_native():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_ulonglong, ctypes.c_int,
         ]
-    _native = lib
     return lib
+
+
+def backend() -> str:
+    """The encoder in use: ``"native"`` (csrc/ library), ``"zstandard"``
+    (pure-Python frame writer) or ``"none"`` (decode-only: no zstd encoder
+    is available, so blosc-zstd stores cannot be written)."""
+    if _load_native():
+        return "native"
+    return "zstandard" if _zstd is not None else "none"
 
 
 def _n_codec_threads() -> int:

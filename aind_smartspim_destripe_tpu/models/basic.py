@@ -1,5 +1,5 @@
 """
-BaSiC shading estimation (flatfield / darkfield / baseline), TPU-native.
+BaSiC shading estimation (flatfield / darkfield / baseline) in JAX.
 
 Replaces the BaSiCPy dependency of the reference flat-field estimation step
 (flatfield_estimation.py:43-45: ``BaSiC(**params).fit(images,

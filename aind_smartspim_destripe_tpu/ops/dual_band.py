@@ -10,21 +10,12 @@ sigma and a background sigma, then blend per pixel by a smoothed sigmoid
 foreground fraction, so bright structure (cells) gets the gentler notch and
 background gets the aggressive one.
 
-TPU-native structure: both bands genuinely share ONE wavelet decomposition —
+Structure: both bands genuinely share ONE wavelet decomposition —
 ``destripe_batch(plan, images, dual=True)`` runs analysis, Otsu, and the
 inpainting statistics once per plane and doubles only the per-plane notch
-products and the delta synthesis (ops/filter.py); the fused notch kernel
-reads each coefficient band once via a wrapped block index
-(ops/pallas_notch.py). The blend is a fused elementwise pass.
-
-Do NOT rebuild the correction-form blend (synthesis emitting bare
-log-space corrections c, blend computing (1+x)*(exp(c_f)*sm +
-exp(c_b)*(1-sm))+1 to skip K4's wrapped raw-plane read): built, gated
-<= 1 LSB, and REVERTED after losing the on-chip alternating A/B twice
-(41.46/41.40 ms band vs 41.70/41.58 ms corr at B=64 production geometry
-— the wrapped read overlaps compute; the corr blend's two full-plane
-exps sit on the blend kernel's VPU critical path). ROADMAP round-5
-session 4; the full implementation is at commit 578e251.
+products and the delta synthesis (ops/filter.py). The blend
+(:func:`blend_bands_xla`) is a sigmoid -> box smooth -> mix chain that XLA
+fuses.
 """
 
 from __future__ import annotations
@@ -36,7 +27,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import pallas_blend, pallas_env
 from .filter import FilterConfig, build_plan, destripe_batch, device_constants
 from .otsu import threshold_otsu_batch
 
@@ -48,12 +38,8 @@ __all__ = [
 
 
 def _smooth(img: jax.Array, radius: int = 8) -> jax.Array:
-    """Separable edge-replicated box smoothing of the blend mask.
-
-    Native ``lax.reduce_window`` sums (stride 1) rather than prefix-sum
-    differencing: cumsum over the long axes lowers to serial scan passes
-    and gather-heavy slicing on TPU, while the windowed sum is one fused
-    VPU pass per axis."""
+    """Separable edge-replicated box smoothing of the blend mask: one
+    stride-1 ``lax.reduce_window`` sum per axis."""
     if radius <= 0:
         return img
     k = 2 * radius + 1
@@ -98,43 +84,16 @@ def dual_band_destripe_batch(
     - ``crossover``: sigmoid width (reference foreground_fraction semantics).
     """
     check_crossover(crossover)
-    # Raw uint16 batches stay uint16 through the whole blend section: the
-    # Otsu histogram kernel and the fused blend kernel both convert in-VMEM
-    # (exact — every 16-bit value is f32-representable, so sigmoid/threshold
-    # bits are identical), which removes the materialized f32 copy of the
-    # input plane plus its padded twin (~3 GB/step of HBM traffic at B=64
-    # production geometry). Float callers keep the legacy cast.
-    x = images if images.dtype == jnp.uint16 else images.astype(jnp.float32)
-    b = x.shape[0]
+    b = images.shape[0]
     both = destripe_batch(plan, images, -jnp.inf, consts, dual=True)
-
-    # Pallas one-hot histogram on TPU (ops/pallas_hist.py); the vmapped
-    # scalar fallback's broadcast-compare loop costs ~10x at this size
-    otsu_centers = threshold_otsu_batch(x)
-    centers = jnp.where(
-        threshold < 0, otsu_centers, jnp.full_like(otsu_centers, threshold)
-    )
-
-    # Fused blend (ops/pallas_blend.py): sigmoid -> 17x17 box smooth ->
-    # band mix in one kernel — the XLA chain below moves the full-res frac
-    # through HBM five times (~29 ms of the ~65 ms dual step at production
-    # geometry). Needs a static crossover (baked into the kernel). The
-    # kernel reads BOTH bands from the stacked (2B, H, W) buffer by block
-    # index (back=None) — slicing fore/back first materializes a
-    # 2x-full-plane copy fusion (5.1 ms/step at B=64, round-5 dual trace).
-    if (
-        pallas_env.enabled()
-        and not isinstance(crossover, jax.core.Tracer)
-        and smooth_radius == pallas_blend.RADIUS
-        and x.shape[-2] * x.shape[-1] >= 400_000
-    ):
-        return pallas_blend.blend_smooth_mix(
-            x, both, None, centers, float(crossover)
+    with jax.named_scope("blend"):
+        otsu_centers = threshold_otsu_batch(images)
+        centers = jnp.where(
+            threshold < 0, otsu_centers, jnp.full_like(otsu_centers, threshold)
         )
-
-    return blend_bands_xla(
-        x, both[:b], both[b:], centers, crossover, smooth_radius
-    )
+        return blend_bands_xla(
+            images, both[:b], both[b:], centers, crossover, smooth_radius
+        )
 
 
 def blend_bands_xla(
@@ -145,12 +104,8 @@ def blend_bands_xla(
     crossover,
     smooth_radius: int = 8,
 ) -> jax.Array:
-    """The dual-band blend in its plain XLA formulation: per-plane sigmoid
-    foreground fraction -> edge-replicated box smooth -> band mix. The ONE
-    definition shared by the plane-batch fallback above and the row-sharded
-    route (parallel/halo.dual_band_destripe_y_sharded, where GSPMD
-    partitions it) — the two outputs are gated to <= 1 LSB of each other,
-    so the numerics must come from a single site."""
+    """The dual-band blend: per-plane sigmoid foreground fraction ->
+    edge-replicated box smooth -> band mix."""
     x = x.astype(jnp.float32)  # uint16 callers: sigmoid math is float
     frac = 1.0 / (1.0 + jnp.exp(-(x - centers[:, None, None]) / crossover))
     frac = _smooth(frac, smooth_radius)
@@ -179,8 +134,6 @@ def _dual_plan(h, w, wavelet, level, sigma_fore, sigma_back, max_threshold):
 )
 def _jitted_dual(plan, images, threshold, consts, crossover=100.0,
                  smooth_radius=8):
-    # crossover is static so the fused blend kernel can bake it in (it is a
-    # config constant, not per-plane data)
     return dual_band_destripe_batch(
         plan, images, crossover, threshold, smooth_radius, consts
     )
@@ -234,8 +187,8 @@ def dual_band_destripe_configs(
 
 
 def _as_device_dtype(img: np.ndarray) -> np.ndarray:
-    """uint16 ships raw (the kernels ingest it directly — see
-    dual_band_destripe_batch); anything else goes to float32."""
+    """uint16 ships raw (half the host-to-device bytes; the graph casts on
+    the fly); anything else goes to float32."""
     if img.dtype == np.uint16:
         return img
     return img.astype(np.float32, copy=False)

@@ -1,6 +1,6 @@
 """
 Gaussian-notch row filtering equivalent to the reference's packed-format
-scipy.fftpack pipeline, recast as an MXU matmul.
+scipy.fftpack pipeline, recast as a matmul.
 
 The reference multiplies the *packed* output of scipy.fftpack.rfft by a 1-D
 Gaussian notch elementwise (filtering.py:206-215). FFTPACK's legacy packing is
@@ -13,7 +13,7 @@ Because rfft -> per-bin (real, imag) gains -> irfft is a fixed real linear map
 of each row, we precompute the exact n x n operator B (float64 numpy at trace
 time, applied as x @ B^T in float32) — this both reproduces the packed-format
 semantics bit-faithfully and turns awkward odd-length FFTs (1002, 503, 129...)
-into dense matmuls that run at full MXU throughput on TPU.
+into dense matmuls on the device's matrix units.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ __all__ = [
     "gaussian_filter",
     "packed_notch_matrix",
     "apply_notch",
-    "apply_notch_fft",
 ]
 
 
@@ -90,18 +89,3 @@ def apply_notch(rows: jax.Array, bmat: jax.Array) -> jax.Array:
     """Apply a precomputed notch operator to the last axis of ``rows``."""
     return jnp.matmul(rows, bmat.T, precision=jax.lax.Precision.HIGHEST)
 
-
-def apply_notch_fft(rows: jax.Array, sigma: float) -> jax.Array:
-    """The same packed-gain spectral map as :func:`packed_notch_matrix`
-    applied directly via rfft/irfft: O(n log n) compute and O(n) operator
-    bytes, where the dense matrix is O(n^2) both ways. Used by the Y-halo
-    kernel at beyond-HBM plane widths, where the per-level (w, 2w) notch
-    matrices stop fitting (the matmul form stays the default at production
-    widths — it runs on the MXU; TPU FFTs do not)."""
-    n = rows.shape[-1]
-    a, b = _packed_gains(n, notch(n, float(sigma)))
-    spec = jnp.fft.rfft(rows, axis=-1)
-    spec = jnp.asarray(a, spec.real.dtype) * spec.real + 1j * (
-        jnp.asarray(b, spec.real.dtype) * spec.imag
-    )
-    return jnp.fft.irfft(spec, n=n, axis=-1).astype(rows.dtype)

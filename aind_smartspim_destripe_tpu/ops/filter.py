@@ -2,32 +2,23 @@
 The destripe kernel: batched, jittable, geometry-specialized.
 
 Rebuilds reference filtering.py:139-224 (`log_space_fft_filtering`) and
-:417-491 (`filter_stripes`) TPU-first:
+:417-491 (`filter_stripes`) as one XLA graph per geometry:
 
 - A *plan* is built once per image geometry (H, W, wavelet, level, sigmas):
-  the static per-level shape ladder plus precomputed banded DWT and
+  the static per-level shape ladder plus precomputed dense DWT and
   packed-FFT notch operators (see ops/wavelets.py, ops/fft_notch.py).
   Everything under jit has static shapes.
 - Planes are processed as a batch (B, H, W). Analysis keeps only the
   lowpass x-half (only cA/cH are ever consumed) and synthesis propagates
   just the cH deltas onto log1p(x) via perfect reconstruction — see
-  DestripePlan.constants. On TPU the big levels run as blocked
-  banded-operator Pallas kernels (ops/pallas_band.py: raw-uint16 ingest,
-  fused log1p/exp/uint16 epilogues, classifier + Otsu-range statistics as
-  free side channels) and the per-level mask -> median-inpaint -> notch ->
-  delta tail as one Pallas program (ops/pallas_notch.py); Otsu histograms
-  and inpainting medians run in Pallas kernels (ops/pallas_hist.py,
-  ops/pallas_median.py) with bit-identical results. Off TPU (and for tiny
-  levels) everything falls back to dense-operator MXU/XLA formulations
-  with identical numerics — pallas_env.py arbitrates, and
-  DESTRIPE_PALLAS_INTERPRET=1 runs the production kernel graph in the
-  interpreter for CI.
+  DestripePlan.constants. Every stage (classifier, analysis, Otsu,
+  masked-median inpainting, notch, synthesis, epilogues) is plain
+  jax.numpy / lax, one formulation per operation; every operator matmul
+  runs at ``wavelets.MATMUL_PRECISION``.
 - The per-plane cells/no-cells branch (reference filtering.py:462-467) only
   changes two scalars (sigma, max_threshold) when both configs share a
-  wavelet/level — so instead of control flow the fused notch kernel picks
-  the operator per plane by scalar-prefetch indexing (half the FLOPs),
-  and the dense fallback computes both notch products in one matmul and
-  selects per plane.
+  wavelet/level — so instead of control flow the notch computes both
+  notch products in one matmul and selects per plane.
 
 Replicated reference quirks (they define the golden output):
 - ``exp(y) + 1.0`` inverse instead of expm1 (filtering.py:222),
@@ -39,7 +30,6 @@ Replicated reference quirks (they define the golden output):
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from functools import lru_cache, partial
 from typing import Optional, Tuple
@@ -49,9 +39,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from . import fft_notch
-from . import pallas_band
-from . import pallas_env
-from . import pallas_notch
 from . import wavelets
 from .otsu import threshold_otsu_batch
 from .wavelets import wavedec2_shapes, wavelet
@@ -109,23 +96,15 @@ class DestripePlan:
     cells: FilterConfig
     no_cells: FilterConfig
 
-    def notch_matrices(self, dtype=np.float32, skip=None):
+    def notch_matrices(self, dtype=np.float32):
         """Per-level (cells, no_cells) notch operators, coarsest first.
 
         sigma_effective = rows(level) * sigma / min(H, W)
         (reference filtering.py:180,208-213: `s = fft.shape[0] * width_fraction`).
-
-        ``skip``: coarsest-first booleans — levels marked True get ``None``
-        instead of a pair (their O(w^2) matrices are never built; the
-        Y-halo kernel notches them spectrally via
-        :func:`fft_notch.apply_notch_fft` with :meth:`notch_sigmas`).
         """
         min_side = min(self.height, self.width)
         mats = []
-        for i, (h, w) in enumerate(self.ladder):
-            if skip is not None and skip[i]:
-                mats.append(None)
-                continue
+        for h, w in self.ladder:
             pair = []
             for cfg in (self.cells, self.no_cells):
                 s = h * cfg.sigma / min_side
@@ -135,30 +114,14 @@ class DestripePlan:
             mats.append(tuple(pair))
         return tuple(mats)
 
-    def notch_sigmas(self):
-        """Per-level (cells, no_cells) effective notch sigmas, coarsest
-        first — the scalar inputs of :meth:`notch_matrices`, for callers
-        applying the notch spectrally instead of as a matmul."""
-        min_side = min(self.height, self.width)
-        return tuple(
-            (h * self.cells.sigma / min_side, h * self.no_cells.sigma / min_side)
-            for (h, _) in self.ladder
-        )
-
-    def constants(
-        self, dense_only: bool = False, banded_x_min_w: Optional[int] = None
-    ):
+    def constants(self):
         """All large operator matrices as a pytree of numpy arrays, meant to
         be passed INTO a jitted kernel (device-resident) rather than baked
         into the graph — multi-MB HLO literal constants stall XLA's
-        compiler. ``dense_only=True`` skips the Pallas band / packed-tail
-        operators (callers on the dense path, e.g. the Y-halo-sharded step,
-        which runs no Pallas programs).
+        compiler.
 
-        The dense per-geometry DWT operators measure ~45% faster end-to-end
-        on TPU than the FLOP-cheaper blocked shift-invariant path (transposes
-        and misaligned windows dominate the latter). On top of that,
-        destripe_batch exploits the filter's structure:
+        The operators are dense per-geometry matrices (mostly zeros: a DWT
+        pass is banded). destripe_batch exploits the filter's structure:
 
         - only cA (to recurse) and cH (to filter) are ever consumed, so the
           analysis x-pass keeps just the lowpass rows (``an_x_lo``) — half
@@ -173,173 +136,25 @@ class DestripePlan:
         an_y (2L_h x h), an_x_lo (L_w x w), syn_y (h_t x 2L_h, output rows
         pre-trimmed to the crop-rule target), syn_x_lo (w_t x L_w), and
         notch_cat ((w, 2w): cells | no_cells notch operators fused so both
-        bands come from a single MXU matmul)."""
+        bands come from a single matmul)."""
         wav = wavelets.wavelet(self.wavelet)
-        # banded_x_min_w: levels at or above this x width carry NO dense x
-        # operators — their (w/2, w) matrices are O(w^2) on host and chip,
-        # infeasible at Y-halo plane widths; the halo kernel applies the
-        # blocked shift-invariant x-pass (wavelets.an_lo_pass_last /
-        # syn_lo_pass_last, O(flen) operator bytes) for those levels.
         an = wavelets.analysis_operators(
-            (self.height, self.width), wav, self.n_levels,
-            x_skip_min=banded_x_min_w,
+            (self.height, self.width), wav, self.n_levels
         )
         syn = wavelets.synthesis_operators(
-            (self.height, self.width), wav, self.n_levels,
-            x_skip_min=banded_x_min_w,
+            (self.height, self.width), wav, self.n_levels
         )
-        # coarsest-first skip flags matching the x-operator skips: ladder
-        # level i is produced by analysis level (n_levels - 1 - i), whose
-        # input width drives the skip decision for all three x-axis
-        # operators (an_x_lo, syn_x_lo, notch) of that level
-        w_in = []  # finest-first analysis input widths
-        w_cur = self.width
-        for _ in range(self.n_levels):
-            w_in.append(w_cur)
-            w_cur = wavelets.dwt_coeff_len(w_cur, wav.flen)
-        notch_skip = [
-            banded_x_min_w is not None
-            and w_in[self.n_levels - 1 - i] >= banded_x_min_w
-            for i in range(self.n_levels)
-        ]
         out = {
             "an_y": tuple(p[0] for p in an),
-            "an_x_lo": tuple(
-                None if p[1] is None else p[1][: p[1].shape[0] // 2]
-                for p in an
-            ),
+            "an_x_lo": tuple(p[1][: p[1].shape[0] // 2] for p in an),
             "syn_y": tuple(p[0] for p in syn),
-            "syn_x_lo": tuple(
-                None if p[1] is None else p[1][:, : p[1].shape[1] // 2]
-                for p in syn
-            ),
+            "syn_x_lo": tuple(p[1][:, : p[1].shape[1] // 2] for p in syn),
             "notch_cat": tuple(
-                None if pair is None
-                else np.concatenate([pair[0].T, pair[1].T], axis=1)
-                for pair in self.notch_matrices(skip=notch_skip)
+                np.concatenate([pair[0].T, pair[1].T], axis=1)
+                for pair in self.notch_matrices()
             ),
         }
-        # Blocked banded operators per bandable level (Pallas fast path,
-        # ops/pallas_band.py), finest first — only where the kernels can
-        # run; elsewhere (CPU tests, tiny geometries) the dense path reads
-        # the keys' absence and the pytree stays lean.
-        if dense_only:
-            return out
-        if pallas_band.available():
-            for lvl in range(self.n_levels):
-                band = band_operators(self, lvl)
-                if band is None:
-                    break  # coarser levels only shrink — stop at first miss
-                out[f"band{lvl}"] = band
-            # Stacked per-plane-selectable notch operators (coarsest first,
-            # aligned with notch_cat) for the fused notch->delta kernel
-            # (ops/pallas_notch.py); None marks levels below the Pallas
-            # pay-off gate, which keep the dense both-bands formulation.
-            out["notch_sel"] = tuple(
-                pallas_notch.stacked_notch_operators(bc, bn)
-                if lh * lw >= _PALLAS_MIN_PX
-                else None
-                for (lh, lw), (bc, bn) in zip(
-                    self.ladder, self.notch_matrices()
-                )
-            )
         return out
-
-
-def _band_level_geometry(
-    plan: "DestripePlan", lvl: int
-) -> Tuple[int, int, int, int]:
-    """(h, w, lh, lw): input extent and detail extent of analysis level
-    ``lvl`` (0 = finest). cA and cH of a level share a shape, so the input
-    of level ``lvl >= 1`` is the detail shape of level ``lvl - 1``."""
-    if lvl == 0:
-        h, w = plan.height, plan.width
-    else:
-        h, w = plan.ladder[-lvl]
-    lh, lw = plan.ladder[-1 - lvl]
-    return h, w, lh, lw
-
-
-@lru_cache(maxsize=128)
-def band_spec(plan: "DestripePlan", lvl: int = 0) -> Optional[dict]:
-    """Static geometry of the blocked banded-operator kernels for analysis
-    level ``lvl`` (0 = finest; ops/pallas_band.py), or None when the level
-    is too small for the blocking to pay off / fit the window formulas. All
-    window starts follow ``clip(stride*i - pad, 0, smax)`` — the same closed
-    form the kernels evaluate — and :func:`pallas_band.blocked_operator`
-    verifies band coverage exactly, so an infeasible geometry raises there
-    and disables the path instead of corrupting output."""
-    if not 0 <= lvl < plan.n_levels:
-        return None
-    H, W, L_h, L_w = _band_level_geometry(plan, lvl)
-    if H * W < 400_000 or H < 560 or W < 560:
-        return None
-    rup = lambda a, b: -(-a // b) * b  # noqa: E731
-    cdiv = lambda a, b: -(-a // b)  # noqa: E731
-    try:
-        spec = {
-            # K1: analysis x lowpass (lane contraction, 128-aligned)
-            "k1": dict(nc=cdiv(L_w, 128), w=384, stride=256, pad=128,
-                       smax=rup(W, 128) - 384, r=128),
-            # K2: analysis y lo+hi (sublane contraction)
-            "k2": dict(nr=cdiv(L_h, 128), w=272, stride=256, pad=8,
-                       smax=H - 272, r=128),
-            # K3: synthesis y of [cA-corr; cH-delta] — smax clamps to the
-            # LOGICAL coefficient extent (dynamic-slice starts clamp there)
-            "k3": dict(nt=cdiv(H, 256), w=144, stride=128, pad=8,
-                       smax=L_h - 144, r=256),
-            # K4: synthesis x lowpass + exp epilogue (lane contraction)
-            "k4": dict(nc=cdiv(W, 256), w=384, stride=128, pad=128,
-                       smax=rup(L_w, 128) - 384, r=256),
-        }
-        if any(v["smax"] < 0 for v in spec.values()):
-            return None
-        for k in spec:
-            spec[k]["starts"] = pallas_band.window_starts(
-                spec[k]["nc" if k in ("k1", "k4") else
-                        ("nr" if k == "k2" else "nt")],
-                spec[k]["stride"], spec[k]["pad"], spec[k]["smax"],
-            )
-        return spec
-    except Exception:  # pragma: no cover - geometry corner
-        return None
-
-
-def band_operators(plan: "DestripePlan", lvl: int = 0) -> Optional[dict]:
-    """Blocked banded operator arrays for analysis level ``lvl`` (numpy),
-    keyed bk1..bk4(lo/hi); None when :func:`band_spec` rejects the geometry
-    or a window fails the exact coverage check."""
-    spec = band_spec(plan, lvl)
-    if spec is None:
-        return None
-    H, W, L_h, L_w = _band_level_geometry(plan, lvl)
-    wav_name = plan.wavelet
-    try:
-        Ax = wavelets.analysis_operator(W, wav_name)  # (2*L_w, W)
-        Ay = wavelets.analysis_operator(H, wav_name)  # (2*L_h, H)
-        Sy = wavelets.synthesis_operator(L_h, wav_name)[:H]  # (H, 2*L_h)
-        Sx = wavelets.synthesis_operator(L_w, wav_name)[:W, :L_w]  # (W, L_w)
-        k1, k2, k3, k4 = spec["k1"], spec["k2"], spec["k3"], spec["k4"]
-        b2lo = pallas_band.blocked_operator(
-            Ay[:L_h], k2["r"], k2["w"], k2["starts"])
-        b2hi = pallas_band.blocked_operator(
-            Ay[L_h:], k2["r"], k2["w"], k2["starts"])
-        # hi/lo bf16 splits happen on the HOST: an XLA-level split would be
-        # folded away under --xla_allow_excess_precision (see pallas_band)
-        split = pallas_band.split_bf16_np
-        return {
-            "bk1": split(pallas_band.blocked_operator(
-                Ax[:L_w], k1["r"], k1["w"], k1["starts"])),
-            "bk2": split(np.concatenate([b2lo, b2hi], axis=2)),
-            "bk3_lo": split(pallas_band.blocked_operator(
-                Sy[:, :L_h], k3["r"], k3["w"], k3["starts"])),
-            "bk3_hi": split(pallas_band.blocked_operator(
-                Sy[:, L_h:], k3["r"], k3["w"], k3["starts"])),
-            "bk4": split(pallas_band.blocked_operator(
-                Sx, k4["r"], k4["w"], k4["starts"])),
-        }
-    except ValueError:  # band wider than a window: fall back to dense
-        return None
 
 
 @lru_cache(maxsize=32)
@@ -373,12 +188,6 @@ def build_plan(
 # ---------------------------------------------------------------------------
 
 
-# Below this many pixels per plane the fixed pallas_call overhead exceeds the
-# entire XLA reduction for the Otsu/median kernels, so coarse wavelet levels
-# route through the (bit-identical) XLA formulation instead. Trace-tuned at
-# production geometry (the five coarsest of 8 levels fall under it).
-_PALLAS_MIN_PX = int(os.environ.get("DESTRIPE_PALLAS_MIN_PX", str(32 * 1024)))
-
 @lru_cache(maxsize=8)
 def _classifier_cut(
     center: float, crossover: float, threshold_mask: float
@@ -392,7 +201,7 @@ def _classifier_cut(
     evaluating the exact numpy float16 chain on all 65536 half-precision bit
     patterns. Returns the breakpoint, or None if monotonicity ever fails
     (callers then keep the transcendental formulation). Removes the exp from
-    the per-plane classifier, whose VPU cost is visible at production batch.
+    the per-plane classifier.
     """
     bits = np.arange(65536, dtype=np.uint16)
     v = bits.view(np.float16)
@@ -410,55 +219,6 @@ def _classifier_cut(
     if not bool(np.all(ms[first:])) or bool(np.any(ms[:first])):
         return None  # not monotone: keep the sigmoid path
     return float(vs[first])
-
-
-@lru_cache(maxsize=8)
-def _classifier_cut_f32(
-    center: float, crossover: float, threshold_mask: float
-) -> Optional[float]:
-    """Smallest float32 ``b`` such that ``float16(b)`` crosses the
-    classifier breakpoint — i.e. ``f16(x) >= cut  <=>  x >= b`` for every
-    f32 (or integer) x. Lets kernels evaluate the exact float16 classifier
-    as one f32 compare (f32->f16 rounding is monotone). None when the f16
-    chain itself is not monotone (then keep the sigmoid formulation)."""
-    cut = _classifier_cut(center, crossover, threshold_mask)
-    if cut is None:
-        return None
-    if not cut > 0:
-        # uint32 bit patterns order f32 values only on the POSITIVE axis;
-        # a zero/negative breakpoint would make the bisection walk wrapped
-        # bit space (production cut is +383.2 — this guards future callers)
-        return None
-    c16 = np.float16(cut)
-    lo = np.float32(np.nextafter(c16, -np.inf, dtype=np.float16))
-    hi = np.float32(c16)
-    # bisect f32 bit patterns: predicate p(x) = f16(x) >= cut is monotone
-    lo_b = lo.view(np.uint32)
-    hi_b = hi.view(np.uint32)
-    while hi_b - lo_b > 1:
-        mid_b = np.uint32((int(lo_b) + int(hi_b)) // 2)
-        mid = mid_b.view(np.float32)
-        if np.float16(mid) >= c16:
-            hi_b = mid_b
-        else:
-            lo_b = mid_b
-    return float(np.uint32(hi_b).view(np.float32))
-
-
-def classify_from_sums(
-    fg_cnt: jax.Array,
-    bg_cnt: jax.Array,
-    fg_sum: jax.Array,
-    bg_sum: jax.Array,
-    microscope_high_int: float,
-) -> jax.Array:
-    """Final classifier decision from the four per-plane reductions (all
-    (B,) f32) — the tail of :func:`classify_planes`, split out so kernels
-    that already stream the input (pallas_band.an_x_lowpass_log1p stats)
-    can emit the partial sums instead of XLA re-reading the batch."""
-    fg_mean = jnp.where(fg_cnt > 0, fg_sum / jnp.maximum(fg_cnt, 1.0), 0.0)
-    bg_mean = jnp.where(bg_cnt > 0, bg_sum / jnp.maximum(bg_cnt, 1.0), 0.0)
-    return (fg_mean > bg_mean) & (fg_mean > microscope_high_int)
 
 
 def classify_planes(
@@ -486,25 +246,14 @@ def classify_planes(
     bg_cnt = jnp.sum((~cell_mask).astype(jnp.float32), axis=axes)
     fg_sum = jnp.sum(jnp.where(cell_mask, imgs, 0.0), axis=axes)
     bg_sum = jnp.sum(jnp.where(cell_mask, 0.0, imgs), axis=axes)
-    # ONE decision rule: the banded-kernel path feeds its in-kernel partial
-    # sums through the same helper, so the tail must not be duplicated here
-    return classify_from_sums(
-        fg_cnt, bg_cnt, fg_sum, bg_sum, microscope_high_int
-    )
+    fg_mean = jnp.where(fg_cnt > 0, fg_sum / jnp.maximum(fg_cnt, 1.0), 0.0)
+    bg_mean = jnp.where(bg_cnt > 0, bg_sum / jnp.maximum(bg_cnt, 1.0), 0.0)
+    return (fg_mean > bg_mean) & (fg_mean > microscope_high_int)
 
 
-def _row_median(x: jax.Array, pallas: bool = True) -> jax.Array:
-    """Exact median over the last axis, keepdims.
-
-    On TPU: sort-free Pallas radix bisection (ops/pallas_median.py) — one
-    VMEM pass instead of a bitonic sort. Elsewhere: a values-only lax.sort
-    (still ~2x cheaper than jnp.median's stable (f32, s32) tuple sort). Both
-    are exact."""
-    if pallas and pallas_env.enabled() and x.dtype == jnp.float32:
-        from .pallas_median import row_median_batch
-
-        return row_median_batch(x)
-
+def _row_median(x: jax.Array) -> jax.Array:
+    """Exact median over the last axis, keepdims: a values-only lax.sort
+    (about half the work of jnp.median's stable (f32, s32) tuple sort)."""
     n = x.shape[-1]
     s = jax.lax.sort(x, dimension=x.ndim - 1, is_stable=False)
     if n % 2:
@@ -512,81 +261,6 @@ def _row_median(x: jax.Array, pallas: bool = True) -> jax.Array:
     lo = s[..., n // 2 - 1 : n // 2]
     hi = s[..., n // 2 : n // 2 + 1]
     return (lo + hi) * 0.5
-
-
-# ---------------------------------------------------------------------------
-# Batched deep-level Otsu (round-5 A/B for the small-level tail)
-# ---------------------------------------------------------------------------
-
-# Round-5 knob: compute ALL the dense-path (deep) levels' Otsu thresholds
-# in ONE Pallas histogram call instead of one XLA reduce chain per level.
-# Mechanism differs from the REMOVED deep-pack (ROADMAP round-3 status):
-# no masked 4-D one-hots and no per-level scalar gathers — each narrow band
-# reuses the lane fold that measured a WIN for Wp <= 256 (NaN padding
-# self-masks in the kernel), bands stack along the BATCH axis, and one
-# shared threshold tail (otsu_from_counts) replaces n_deep cumsum chains.
-# On-chip A/B (v5e 2026-08-19, kernel_sweep.py deepotsu, both orders):
-# OFF 19.34/19.57 ms/step vs ON 19.14/19.33 — a consistent ~0.2 ms win
-# (run noise ~0.13), so the default is ON. Thresholds are bit-identical
-# either way (tests/test_deep_otsu.py).
-def _deep_otsu_batch_enabled() -> bool:
-    # read at trace time (not import) so the on-chip A/B can flip it
-    # between fresh jitted closures
-    return os.environ.get("DESTRIPE_DEEP_OTSU", "1") == "1"
-
-
-def _deep_otsu_sqrt_batched(chs):
-    """Per-plane ``sqrt(otsu(ch**2))`` for a LIST of small (B, h_i, w_i)
-    detail bands via one Pallas histogram call: each band's rows fold into
-    1024-lane pseudo-rows (bit-identical counts — binning is position-
-    independent and NaN padding compares False in both one-hots), the folded
-    bands stack along batch, and one vectorized threshold tail runs over the
-    (n_bands*B, 256) counts. Returns a list of (B,) float32 thresholds in
-    input order. Numerics identical to per-level
-    ``sqrt(threshold_otsu_batch(ch*ch, pallas=False))`` — gated exactly in
-    tests/test_deep_otsu.py."""
-    from .pallas_hist import histogram256_batch
-
-    B = chs[0].shape[0]
-    folded, los, his = [], [], []
-    rows_max = 0
-    for ch in chs:
-        ch = ch.astype(jnp.float32)
-        absx = jnp.abs(ch)
-        lo_a = jnp.min(absx, axis=(1, 2))
-        hi_a = jnp.max(absx, axis=(1, 2))
-        los.append(lo_a * lo_a)
-        his.append(hi_a * hi_a)
-        h, w = ch.shape[1], ch.shape[2]
-        wp = -(-w // 128) * 128
-        fold = max(1024 // wp, 1)
-        hf = -(-h // fold) * fold
-        f = jnp.pad(
-            ch, ((0, 0), (0, hf - h), (0, wp - w)),
-            constant_values=jnp.nan,
-        ).reshape(B, hf // fold, fold * wp)
-        if f.shape[-1] < 1024:  # pragma: no cover - wp always 128/256 here
-            f = jnp.pad(f, ((0, 0), (0, 0), (0, 1024 - f.shape[-1])),
-                        constant_values=jnp.nan)
-        folded.append(f)
-        rows_max = max(rows_max, f.shape[1])
-    stacked = jnp.concatenate(
-        [
-            jnp.pad(f, ((0, 0), (0, rows_max - f.shape[1]), (0, 0)),
-                    constant_values=jnp.nan)
-            for f in folded
-        ],
-        axis=0,
-    )
-    lo = jnp.concatenate(los)
-    hi = jnp.concatenate(his)
-    span = hi - lo
-    safe_span = jnp.where(span > 0, span, 1.0)
-    counts = histogram256_batch(stacked, lo, safe_span, square=True)
-    from .otsu import otsu_from_counts
-
-    th = jnp.sqrt(otsu_from_counts(counts, lo, hi))
-    return [th[i * B : (i + 1) * B] for i in range(len(chs))]
 
 
 # ---------------------------------------------------------------------------
@@ -601,121 +275,51 @@ def _filter_level(
     thr_cells: float,
     thr_no_cells: float,
     otsu_sqrt: Optional[jax.Array] = None,  # precomputed sqrt(otsu(ch^2))
-    pallas: Optional[bool] = None,  # force the Pallas/dense split (None=auto)
     notch_apply=None,  # (B,h,w)->(B,h,2w) spectral notch when bmat_cat=None
 ) -> jax.Array:
+    """Reference per-band filter (filtering.py:186-219): Otsu stripe
+    threshold on ch^2, row-median inpainting of the stripe pixels, then the
+    per-plane notch. The ``jax.named_scope`` names are the stage names the
+    trace reducer (benchmarks/step_profile.py) attributes device time to."""
     w = ch.shape[-1]
     max_thr = jnp.where(is_cells, thr_cells, thr_no_cells)
-
-    use_pallas = (
-        (pallas_env.enabled() if pallas is None else pallas)
-        and bmat_cat is not None
-        and ch.dtype == jnp.float32
-        and ch.shape[-2] * ch.shape[-1] >= _PALLAS_MIN_PX
-    )
-    if use_pallas:
-        # Fused path: the Otsu histogram squares in-kernel and the
-        # inpainting median masks in-kernel, so neither ch^2 nor the
-        # zeroed background array is ever materialized in HBM. With
-        # mask in {0,1}: background + med*mask == where(mask, med, ch)
-        # and fg + filtered*(1-mask) == where(mask, ch, filtered) —
-        # numerically identical to the reference formulation.
-        from .pallas_median import row_median_masked
-
-        if otsu_sqrt is None:
-            otsu_sqrt = jnp.sqrt(threshold_otsu_batch(ch, square=True))
-        threshold = jnp.minimum(max_thr, otsu_sqrt)
-        thr3 = threshold[:, None, None]
-        # sqrt(ch*ch), not |ch|: the reference compares the rounded
-        # sqrt-of-square (filtering.py:188,195), which differs from |ch| in
-        # ulp/underflow corners
-        stripes = jnp.sqrt(ch * ch) > thr3
-        med = row_median_masked(ch, threshold)
-        inpainted = jnp.where(stripes, med, ch)
-        both = jnp.matmul(inpainted, bmat_cat, precision=jax.lax.Precision.HIGH)
-        filtered = jnp.where(is_cells[:, None, None], both[..., :w], both[..., w:])
-        return jnp.where(stripes, ch, filtered)
 
     ch_sq = ch * ch
     ch_power = jnp.sqrt(ch_sq)
 
     if otsu_sqrt is None:
-        otsu_sqrt = jnp.sqrt(threshold_otsu_batch(ch_sq, pallas=False))  # (B,)
+        with jax.named_scope("otsu"):
+            otsu_sqrt = jnp.sqrt(threshold_otsu_batch(ch_sq))  # (B,)
     threshold = jnp.minimum(max_thr, otsu_sqrt)[:, None, None]
 
     mask = (ch_power > threshold).astype(ch.dtype)
     foreground = ch * mask
     background = ch * (1.0 - mask)
 
-    background_means = _row_median(background, pallas=False)
+    with jax.named_scope("median"):
+        background_means = _row_median(background)
     background_inpainted = background + background_means * mask
 
-    if bmat_cat is None:
-        both = notch_apply(background_inpainted)
-    else:
-        both = jnp.matmul(
-            background_inpainted, bmat_cat, precision=jax.lax.Precision.HIGH
+    with jax.named_scope("notch"):
+        if bmat_cat is None:
+            both = notch_apply(background_inpainted)
+        else:
+            both = jnp.matmul(
+                background_inpainted, bmat_cat,
+                precision=wavelets.MATMUL_PRECISION,
+            )
+        background_filtered = jnp.where(
+            is_cells[:, None, None], both[..., :w], both[..., w:]
         )
-    background_filtered = jnp.where(
-        is_cells[:, None, None], both[..., :w], both[..., w:]
-    )
 
     return foreground + background_filtered * (1.0 - mask)
-
-
-def _filter_level_delta(
-    ch: jax.Array,
-    is_cells: jax.Array,
-    bmat_cat: jax.Array,
-    thr_cells: float,
-    thr_no_cells: float,
-    notch_sel=None,  # stacked (hi, lo) bf16 operators, or None
-    abs_range=None,  # optional per-plane (min|ch|, max|ch|) for Otsu
-    otsu_sqrt=None,  # precomputed per-output-plane sqrt(otsu(ch^2))
-    dual: bool = False,  # two output deltas per input plane (dual-band)
-) -> jax.Array:
-    """Per-level synthesis delta ``filter(ch) - ch``. With ``notch_sel``
-    (TPU) the whole mask -> inpaint -> per-plane notch -> delta tail runs in
-    one Pallas program (ops/pallas_notch.py) at HALF the notch FLOPs — the
-    operator is chosen per plane instead of computing both bands. Falls back
-    to :func:`_filter_level` minus ch elsewhere (identical numerics).
-
-    ``dual=True`` (with ``is_cells``/``otsu_sqrt`` already doubled, first
-    half selecting the cells operator, second half no-cells): emits 2B
-    deltas from B coefficient planes — the fused kernel reads each band
-    once via a wrapped block index; the dense path tiles the band."""
-    use_fused = (
-        notch_sel is not None
-        and pallas_env.enabled()
-        and ch.dtype == jnp.float32
-        and ch.shape[-2] * ch.shape[-1] >= _PALLAS_MIN_PX
-    )
-    if use_fused:
-        max_thr = jnp.where(is_cells, thr_cells, thr_no_cells)
-        if otsu_sqrt is None:
-            otsu_sqrt = jnp.sqrt(
-                threshold_otsu_batch(ch, square=True, abs_range=abs_range)
-            )
-        threshold = jnp.minimum(max_thr, otsu_sqrt)
-        sel_idx = jnp.where(is_cells, 0, 1)
-        # med_raw=None: the inpainting row medians are selected in-kernel
-        # on the rows already in VMEM — no separate median kernel, no
-        # extra full read of the band
-        return pallas_notch.notch_delta(
-            ch, None, threshold, sel_idx, notch_sel
-        )
-    if dual:
-        ch = jnp.concatenate([ch, ch], axis=0)
-    return _filter_level(
-        ch, is_cells, bmat_cat, thr_cells, thr_no_cells, otsu_sqrt=otsu_sqrt
-    ) - ch
 
 
 def normalize_flat_dark(height: int, width: int, flat, dark):
     """Validate and normalize a (flat, dark) pair to the plane extent:
     paired-or-absent check, reference darkfield crop (filtering.py:377),
     2-D broadcast to (H, W) with a clear error. Shared by every step that
-    applies the flat-field epilogue (plane-sharded and Y-halo-sharded)."""
+    applies the flat-field epilogue."""
     if (flat is None) != (dark is None):
         raise ValueError(
             "flat and dark must be provided together "
@@ -725,9 +329,8 @@ def normalize_flat_dark(height: int, width: int, flat, dark):
         return None, None
     # Normalize both fields to the exact plane extent up front: the
     # darkfield is cropped like the reference (filtering.py:377), then
-    # 2-D fields broadcast to (H, W) so broadcastable-but-not-exact
-    # inputs keep the fused Pallas epilogue; a shape that fits neither
-    # fails here with a clear error instead of deep in the epilogue.
+    # 2-D fields broadcast to (H, W); a shape that fits neither fails here
+    # with a clear error instead of deep in the epilogue.
     hw = (height, width)
     flat = jnp.asarray(flat, jnp.float32)
     dark = jnp.asarray(dark, jnp.float32)
@@ -746,6 +349,64 @@ def normalize_flat_dark(height: int, width: int, flat, dark):
                 f"broadcast to the plane extent {hw}"
             )
     return flat, dark
+
+
+def analysis_bands(xlog: jax.Array, consts) -> list:
+    """The cH band of every analysis level, finest first.
+
+    Only cA (to recurse) and cH (to filter) are consumed, so the x-pass
+    applies the lowpass half only — and it runs FIRST: the x-pass halves
+    the width while the y-pass slightly expands it (lo+hi), so
+    shrink-before-expand saves ~30% of the analysis FLOPs ((w+h)/(2h+w) of
+    the y-first order)."""
+    P = wavelets.MATMUL_PRECISION
+    chs = []
+    a = xlog
+    for lvl, (an_y, an_x_lo) in enumerate(
+        zip(consts["an_y"], consts["an_x_lo"])
+    ):
+        with jax.named_scope(f"analysis_l{lvl}"):
+            lox_w = jnp.einsum(
+                "...hw,jw->...hj", a, jnp.asarray(an_x_lo), precision=P
+            )
+            lox = jnp.einsum(
+                "ih,...hw->...iw", jnp.asarray(an_y), lox_w, precision=P
+            )
+        L_h = lox.shape[-2] // 2
+        a = lox[..., :L_h, :]  # aa: lowpass-y, lowpass-x
+        chs.append(lox[..., L_h:, :])  # cH: highpass-y, lowpass-x
+    return chs
+
+
+def synthesis_correction(deltas, consts) -> jax.Array:
+    """Log-space correction of the full plane from the per-level cH deltas
+    (coarsest first). By perfect reconstruction the unfiltered pyramid
+    reconstructs to log1p(x) exactly, so only the correction [accumulated
+    coarser correction; cH delta] needs the synthesis operators — and only
+    their lowpass-x half."""
+    P = wavelets.MATMUL_PRECISION
+    corr = None
+    n_lvls = len(deltas)
+    for i, (delta, syn_y, syn_x_lo) in enumerate(
+        zip(deltas, consts["syn_y"], consts["syn_x_lo"])
+    ):
+        with jax.named_scope(f"synthesis_l{n_lvls - 1 - i}"):
+            syn_y = jnp.asarray(syn_y)
+            L_h = syn_y.shape[-1] // 2
+            if corr is None:
+                stacked_y = jnp.einsum(
+                    "ih,...hw->...iw", syn_y[:, L_h:], delta, precision=P
+                )
+            else:
+                up = jnp.concatenate([corr[..., :L_h, :], delta], axis=-2)
+                stacked_y = jnp.einsum(
+                    "ih,...hw->...iw", syn_y, up, precision=P
+                )
+            corr = jnp.einsum(
+                "...iw,jw->...ij", stacked_y, jnp.asarray(syn_x_lo),
+                precision=P,
+            )
+    return corr
 
 
 # ---------------------------------------------------------------------------
@@ -768,8 +429,8 @@ def destripe_batch(
     production geometries, pass ``consts=plan.constants()`` as a device
     argument so the operator matrices stay out of the compiled graph.
 
-    Optional fused epilogues (uint16 output, one less HBM round trip on the
-    Pallas band path): ``flat``/``dark`` apply the flat-field correction
+    Optional epilogues (uint16 output, fused by XLA into the last
+    synthesis pass): ``flat``/``dark`` apply the flat-field correction
     (reference filtering.py:470-489); ``wrap=True`` applies the zarr-store
     modulo-2^16 cast (reference zarr_destriper.py:336 parity).
 
@@ -799,8 +460,8 @@ def destripe_batch(
         return y
 
     x = images.astype(jnp.float32)
-
-    xlog = jnp.log(1.0 + x)
+    with jax.named_scope("log1p"):
+        xlog = jnp.log(1.0 + x)
 
     if plan.n_levels == 0:
         # Degenerate tiny-image case: wavedec2 returns [x] untouched.
@@ -809,220 +470,50 @@ def destripe_batch(
 
     if consts is None:
         consts = plan.constants()
-    P = jax.lax.Precision.HIGH
 
-    # Blocked banded Pallas kernels carry the finest levels (~94% of the
-    # MXU work) when the plan built their operators — 4-6x fewer FLOPs than
-    # the dense operators at the same bf16x3 precision (ops/pallas_band.py).
-    bands = {
-        lvl: band_spec(plan, lvl)
-        for lvl in range(plan.n_levels)
-        if f"band{lvl}" in consts
-    }
-
-    # Classifier: when level 0 runs banded and the float16 sigmoid chain
-    # reduces to one compare (it does for the production parameters), K1
-    # emits the four partial reductions while streaming the input — the
-    # classifier then costs no extra pass over the batch. Dual mode needs
-    # no classifier at all: every plane takes BOTH configs, selected by
-    # batch half (first half = cells slot, second = no-cells).
+    # Dual mode needs no classifier: every plane takes BOTH configs,
+    # selected by batch half (first half = cells slot, second = no-cells).
     B0 = x.shape[0]
-    cut32 = (
-        _classifier_cut_f32(400.0, 20.0, 0.3)
-        if bands.get(0) is not None and not dual
-        else None
-    )
     if dual:
         is_cells = jnp.arange(2 * B0) < B0
-    elif cut32 is not None:
-        is_cells = None
     else:
-        is_cells = classify_planes(x, microscope_high_int)
+        with jax.named_scope("classify"):
+            is_cells = classify_planes(x, microscope_high_int)
 
-    # Analysis, finest -> coarsest. Only cA (to recurse) and cH (to filter)
-    # are consumed, so the x-pass applies the lowpass half only — and it
-    # runs FIRST: the x-pass halves the width while the y-pass slightly
-    # expands it (lo+hi), so shrink-before-expand saves ~30% of the
-    # analysis FLOPs ((w+h)/(2h+w) of the y-first order; trace-verified
-    # ~5 ms/step at B=64 production geometry).
-    chs = []
-    ch_ranges: dict = {}
-    a = xlog
-    for lvl, (an_y, an_x_lo) in enumerate(
-        zip(consts["an_y"], consts["an_x_lo"])
-    ):
-        bspec = bands.get(lvl)
-        if bspec is not None:
-            bops = consts[f"band{lvl}"]
-            L_h, L_w = plan.ladder[-1 - lvl]
-            # Level 0 takes the RAW input, not the f32 cast: the kernel
-            # converts in-VMEM (and fuses log1p), so XLA never materializes
-            # the f32 copy of the whole batch (the classifier's reduce
-            # fusions convert on the fly too). Deeper levels consume the
-            # previous cA, already in log space.
-            if lvl == 0 and cut32 is not None:
-                lox_w, cst = pallas_band.an_x_lowpass_log1p(
-                    images, bops["bk1"], bspec["k1"]["starts"], L_w,
-                    cls_cut=cut32,
-                )
-                is_cells = classify_from_sums(
-                    jnp.sum(cst[:, :, 0, 0], axis=1),
-                    jnp.sum(cst[:, :, 0, 128], axis=1),
-                    jnp.sum(cst[:, :, 0, 256], axis=1),
-                    jnp.sum(cst[:, :, 0, 384], axis=1),
-                    microscope_high_int,
-                )
-            else:
-                lox_w = pallas_band.an_x_lowpass_log1p(
-                    images if lvl == 0 else a, bops["bk1"],
-                    bspec["k1"]["starts"], L_w, log1p=(lvl == 0),
-                )
-            a, ch, mm = pallas_band.an_y_pass(
-                lox_w, bops["bk2"], bspec["k2"]["stride"],
-                bspec["k2"]["pad"], L_h, stats=True,
-            )
-            # per-plane |cH| extrema, emitted while the band was in
-            # registers — feeds the Otsu bin range without a re-read
-            ch_ranges[lvl] = (
-                jnp.min(mm[:, :, 0, 0], axis=1),
-                jnp.max(mm[:, :, 0, 128], axis=1),
-            )
-            chs.append(ch)
-            continue
-        lox_w = jnp.einsum(
-            "...hw,jw->...hj", a, jnp.asarray(an_x_lo), precision=P
-        )
-        lox = jnp.einsum(
-            "ih,...hw->...iw", jnp.asarray(an_y), lox_w, precision=P
-        )
-        L_h = lox.shape[-2] // 2
-        a = lox[..., :L_h, :]  # aa: lowpass-y, lowpass-x
-        chs.append(lox[..., L_h:, :])  # cH: highpass-y, lowpass-x
+    chs = analysis_bands(xlog, consts)
 
-    # Filter each cH band (coarsest first, matching the notch operators).
+    # Filter each cH band (coarsest first, matching the notch operators);
+    # each yields the synthesis delta filter(cH) - cH.
     deltas = []
-    notch_sel = consts.get("notch_sel", (None,) * len(chs))
-    n_chs = len(chs)
-    chs_rev = list(reversed(chs))
-    # (A "packed deep tail" that batched every coarse level's filter chain
-    # into one op set was built and A/B-measured twice on chip — 4-D masked
-    # one-hot 10528 -> 10119 MPix/s, mask-free +inf-poisoned rewrite
-    # 10568 -> 10244 — a ~3% regression both times: the coarse levels'
-    # dense-XLA ops fuse well enough that packing only adds lane padding
-    # and gather/scatter. Recorded in ROADMAP.md; do not rebuild it.)
-    # Round-5 narrower A/B (DESTRIPE_DEEP_OTSU): batch ONLY the deep
-    # levels' Otsu into one folded Pallas histogram call — see
-    # _deep_otsu_sqrt_batched and kernel_sweep.py deepotsu.
-    deep_otsu: dict = {}
-    if _deep_otsu_batch_enabled() and pallas_env.enabled():
-        deep_js = [
-            j for j, ch in enumerate(chs_rev)
-            if ch.shape[-2] * ch.shape[-1] < _PALLAS_MIN_PX
-            and ch.dtype == jnp.float32
-        ]
-        if len(deep_js) >= 2:
-            deep_otsu = dict(zip(
-                deep_js,
-                _deep_otsu_sqrt_batched([chs_rev[j] for j in deep_js]),
-            ))
-    for j, (ch, bm_cat, nsel) in enumerate(
-        zip(chs_rev, consts["notch_cat"], notch_sel)
-    ):
-        abs_r = ch_ranges.get(n_chs - 1 - j)
-        otsu_sqrt = deep_otsu.get(j)
-        if dual:
-            # ONE Otsu per input plane, shared by both bands (the stripe
-            # threshold depends only on the coefficients, not the sigma),
-            # then tiled to the doubled delta batch. Gate mirrors
-            # _filter_level's pallas-vs-dense split (paths are bit-equal).
-            big = (
-                pallas_env.enabled()
-                and ch.dtype == jnp.float32
-                and ch.shape[-2] * ch.shape[-1] >= _PALLAS_MIN_PX
-            )
-            if otsu_sqrt is not None and not big:
-                otsu1 = otsu_sqrt  # batched deep-level Otsu (same numerics)
-            else:
-                otsu1 = jnp.sqrt(threshold_otsu_batch(
-                    ch if big else ch * ch,
-                    square=big,
-                    abs_range=abs_r if big else None,
-                    pallas=None if big else False,
-                ))
-            otsu_sqrt = jnp.tile(otsu1, 2)
-            abs_r = None
-        deltas.append(_filter_level_delta(
-            ch,
-            is_cells,
-            jnp.asarray(bm_cat),
-            plan.cells.max_threshold,
-            plan.no_cells.max_threshold,
-            notch_sel=nsel,
-            abs_range=abs_r,
-            otsu_sqrt=otsu_sqrt,
-            dual=dual,
-        ))
+    n_lvls = len(chs)
+    for j, (ch, bm_cat) in enumerate(zip(reversed(chs), consts["notch_cat"])):
+        with jax.named_scope(f"filter_l{n_lvls - 1 - j}"):
+            otsu_sqrt = None
+            if dual:
+                # ONE Otsu per input plane, shared by both bands (the
+                # stripe threshold depends only on the coefficients, not
+                # the sigma), tiled to the doubled delta batch
+                with jax.named_scope("otsu"):
+                    otsu_sqrt = jnp.tile(
+                        jnp.sqrt(threshold_otsu_batch(ch * ch)), 2
+                    )
+                ch = jnp.concatenate([ch, ch], axis=0)
+            deltas.append(_filter_level(
+                ch,
+                is_cells,
+                jnp.asarray(bm_cat),
+                plan.cells.max_threshold,
+                plan.no_cells.max_threshold,
+                otsu_sqrt=otsu_sqrt,
+            ) - ch)
 
-    # Delta synthesis, coarsest -> finest: by perfect reconstruction the
-    # unfiltered pyramid reconstructs to xlog exactly, so only the
-    # correction [accumulated coarser correction; cH delta] needs the
-    # synthesis operators — and only their lowpass-x half.
-    corr = None
-    n_lvls = len(deltas)
-    for i, (delta, syn_y, syn_x_lo) in enumerate(
-        zip(deltas, consts["syn_y"], consts["syn_x_lo"])
-    ):
-        lvl = n_lvls - 1 - i  # analysis-level index of this synthesis step
-        bspec = bands.get(lvl)
-        if bspec is not None:
-            bops = consts[f"band{lvl}"]
-            h_out, w_out, _, _ = _band_level_geometry(plan, lvl)
-            stacked_y = pallas_band.syn_y_pass(
-                corr, delta, bops["bk3_lo"], bops["bk3_hi"],
-                bspec["k3"]["stride"], bspec["k3"]["pad"], h_out,
-            )
-            if lvl > 0:
-                # deeper level: bare correction, feeds the next stacking
-                corr = pallas_band.syn_x_exp(
-                    stacked_y, None, bops["bk4"], bspec["k4"]["starts"],
-                    w_out,
-                )
-                continue
-            # finest level: fused exp (+ output) epilogue
-            fuse_flat = (
-                flat is not None
-                and flat.shape == (plan.height, plan.width)
-                and dark.shape == (plan.height, plan.width)
-            )
-            if fuse_flat:
-                return pallas_band.syn_x_exp(
-                    stacked_y, images, bops["bk4"], bspec["k4"]["starts"],
-                    plan.width, flat=jnp.asarray(flat, jnp.float32),
-                    dark=jnp.asarray(dark, jnp.float32),
-                )
-            out = pallas_band.syn_x_exp(
-                stacked_y, images, bops["bk4"], bspec["k4"]["starts"],
-                plan.width, wrap=wrap,
-            )
-            return out if wrap else epilogue(out)
-        syn_y = jnp.asarray(syn_y)
-        L_h = syn_y.shape[-1] // 2
-        if corr is None:
-            stacked_y = jnp.einsum(
-                "ih,...hw->...iw", syn_y[:, L_h:], delta, precision=P
-            )
-        else:
-            up = jnp.concatenate([corr[..., :L_h, :], delta], axis=-2)
-            stacked_y = jnp.einsum("ih,...hw->...iw", syn_y, up, precision=P)
-        corr = jnp.einsum(
-            "...iw,jw->...ij", stacked_y, jnp.asarray(syn_x_lo), precision=P
-        )
+    corr = synthesis_correction(deltas, consts)
 
     if dual:
         # both bands' corrections apply to the same log-space input
         xlog = jnp.concatenate([xlog, xlog], axis=0)
-    y = xlog + corr
-    return epilogue(jnp.exp(y) + 1.0)
+    with jax.named_scope("epilogue"):
+        return epilogue(jnp.exp(xlog + corr) + 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """
-Flat-field / dark-field shadow correction, TPU-native.
+Flat-field / dark-field shadow correction in JAX.
 
 Mirrors reference filtering.py:227-414 (`normalize_image`, `invert_image`,
 `get_hemisphere_flatfield`, `flatfield_correction`) with the same numerics:

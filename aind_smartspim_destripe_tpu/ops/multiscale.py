@@ -6,7 +6,7 @@ Equivalent of the reference's xarray_multiscale.reducers.windowed_mean with
 dimensions divisible by the scale factors, averaged over non-overlapping
 windows, and cast back to the input dtype (truncation for integers).
 
-On TPU this is a single fused reshape+reduce — no Dask cluster required; the
+On device this is a single fused reduce — no Dask cluster required; the
 runtime pipeline applies it slab-by-slab while streaming.
 """
 
@@ -34,7 +34,7 @@ def windowed_mean(
     Implemented as a native ``lax.reduce_window`` (window == stride) rather
     than the split-every-axis 6-D reshape+mean: the reshape formulation's
     layout assignment blows up XLA's compiler memory on production-size
-    slabs ((64,1600,2000): the TPU compile helper crashes), while the
+    slabs ((64,1600,2000) crashed an earlier backend's compiler), while the
     reduce-window graph compiles in seconds with identical f32-mean
     numerics."""
     nf = len(factors)

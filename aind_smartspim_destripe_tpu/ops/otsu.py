@@ -1,22 +1,19 @@
 """
-Otsu threshold on TPU, matching skimage.filters.threshold_otsu semantics
+Otsu threshold matching skimage.filters.threshold_otsu semantics
 (reference use: code/aind_smartspim_destripe/filtering.py:191, 256-bin default).
 
-Implemented as a fused broadcast-compare histogram: the (N, 256) comparison is
-reduced on the fly by XLA (no scatter, which serializes on TPU), then the
-inter-class variance argmax runs over the tiny 256-bin arrays.
+Implemented as a fused broadcast-compare histogram: XLA reduces the (N, 256)
+comparison on the fly without materializing it, then the inter-class
+variance argmax runs over the tiny 256-bin arrays.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
 
 __all__ = [
     "histogram_fixed_bins",
-    "otsu_from_counts",
     "threshold_otsu",
     "threshold_otsu_batch",
 ]
@@ -35,8 +32,8 @@ def histogram_fixed_bins(x: jnp.ndarray, nbins: int = 256):
     idx = jnp.floor((flat - lo) / safe_span * nbins).astype(jnp.int32)
     idx = jnp.clip(idx, 0, nbins - 1)  # x == max falls in the last bin
     # Fused broadcast-compare-reduce: XLA streams this without materializing
-    # the (N, nbins) intermediate. uint8 compares pack 4x denser on the VPU
-    # than int32 (nbins <= 256 so the cast is lossless).
+    # the (N, nbins) intermediate (nbins <= 256, so the uint8 cast is
+    # lossless and the compare operands stay narrow).
     idx8 = idx.astype(jnp.uint8)
     bins = jnp.arange(nbins, dtype=jnp.uint8)
     counts = jnp.sum(
@@ -64,107 +61,12 @@ def threshold_otsu(x: jnp.ndarray, nbins: int = 256) -> jnp.ndarray:
     return jnp.where(jnp.max(x) > jnp.min(x), th, jnp.min(x))
 
 
-def threshold_otsu_batch(
-    x: jnp.ndarray, nbins: int = 256, square: bool = False,
-    pallas: "bool | None" = None,
-    abs_range: "tuple | None" = None,
-) -> jnp.ndarray:
-    """Per-plane Otsu thresholds for a (B, H, W) batch.
-
-    With ``square=True`` the threshold is computed over ``x**2`` (the filter's
-    Otsu input, filtering.py:191) with the squaring fused into the histogram
-    kernel — the squared array never hits HBM, and the bin range comes from
-    ``min|x|**2 / max|x|**2`` (bit-identical: the square of the extremal
-    element). On TPU the histograms run through the Pallas one-hot MXU kernel
-    (ops/pallas_hist.py, ~8x cheaper than the broadcast-compare loop);
-    elsewhere (or with DESTRIPE_NO_PALLAS=1) it falls back to vmapping
-    :func:`threshold_otsu`. Binning math is identical in both paths.
-    ``pallas``: force (True) or forbid (False) the Pallas kernel; None =
-    auto. Callers gate tiny inputs to False — below ~32k px/plane the
-    pallas_call overhead exceeds the whole XLA reduction.
-    ``abs_range``: optional precomputed per-plane ``(min|x|, max|x|)``
-    (each (B,)) — e.g. emitted by the analysis kernel while the band was in
-    registers (pallas_band.an_y_pass stats) — saving the full-array reduce.
-    Only consulted on the Pallas path.
-    """
-    from . import pallas_env
-
-    # a forced pallas=True still requires the kernel's validity envelope
-    # (256 bins, (B, H, W) rank) — the kernel has no other semantics
-    valid = nbins == 256 and x.ndim == 3
-    if pallas and not valid:
-        raise ValueError(
-            f"pallas=True requires nbins=256 and a 3-D batch, got "
-            f"nbins={nbins}, ndim={x.ndim}"
-        )
-    use_pallas = (valid and pallas_env.enabled()) if pallas is None else pallas
-    if not use_pallas:
-        xv = (
-            x if jnp.issubdtype(x.dtype, jnp.floating)
-            else x.astype(jnp.float32)  # integer planes: bin math is float
-        )
-        xs = xv * xv if square else xv
-        return jax.vmap(lambda p: threshold_otsu(p, nbins))(xs)
-
-    from .pallas_hist import histogram256_batch
-
-    # Raw uint16 planes go to the kernel UNCAST (in-kernel exact f32
-    # conversion) — a host-graph cast materializes a full f32 copy of the
-    # plane just to feed the pallas_call, doubling its HBM read. The range
-    # reduce runs on the integers; min/max commute with the exact cast.
-    if x.dtype == jnp.uint16 and not square:
-        lo = jnp.min(x, axis=(1, 2)).astype(jnp.float32)
-        hi = jnp.max(x, axis=(1, 2)).astype(jnp.float32)
-        span = hi - lo
-        safe_span = jnp.where(span > 0, span, 1.0)
-        counts = histogram256_batch(x, lo, safe_span)
-        return otsu_from_counts(counts, lo, hi, nbins)
-
-    xf = x.astype(jnp.float32)
-    if square:
-        if abs_range is not None:
-            lo_a, hi_a = abs_range
-            lo_a = lo_a.astype(jnp.float32)
-            hi_a = hi_a.astype(jnp.float32)
-        else:
-            absx = jnp.abs(xf)
-            lo_a = jnp.min(absx, axis=(1, 2))
-            hi_a = jnp.max(absx, axis=(1, 2))
-        lo, hi = lo_a * lo_a, hi_a * hi_a
-    elif abs_range is not None:
-        raise ValueError("abs_range implies square=True semantics")
-    else:
-        lo = jnp.min(xf, axis=(1, 2))
-        hi = jnp.max(xf, axis=(1, 2))
-    span = hi - lo
-    safe_span = jnp.where(span > 0, span, 1.0)
-    counts = histogram256_batch(xf, lo, safe_span, square=square)  # (B, 256)
-    return otsu_from_counts(counts, lo, hi, nbins)
-
-
-def otsu_from_counts(
-    counts: jnp.ndarray, lo: jnp.ndarray, hi: jnp.ndarray, nbins: int = 256
-) -> jnp.ndarray:
-    """Per-plane Otsu threshold from precomputed histograms: counts (B,
-    nbins) over equal bins spanning [lo, hi] per plane. The ONE decision
-    tail shared by :func:`threshold_otsu_batch` and the Y-halo sharded
-    Otsu (parallel/halo.py), which psums shard-local histograms and then
-    must apply the identical inter-class-variance argmax."""
-    steps = jnp.arange(nbins + 1, dtype=jnp.float32) / nbins
-    span = hi - lo
-    edges = lo[:, None] + span[:, None] * steps[None, :]
-    centers = (edges[:, :-1] + edges[:, 1:]) / 2.0
-
-    weight1 = jnp.cumsum(counts, axis=1)
-    weight2 = jnp.cumsum(counts[:, ::-1], axis=1)[:, ::-1]
-    mean1 = jnp.cumsum(counts * centers, axis=1) / jnp.maximum(weight1, 1e-30)
-    mean2 = (
-        jnp.cumsum((counts * centers)[:, ::-1], axis=1)
-        / jnp.maximum(weight2[:, ::-1], 1e-30)
-    )[:, ::-1]
-    variance12 = (
-        weight1[:, :-1] * weight2[:, 1:] * (mean1[:, :-1] - mean2[:, 1:]) ** 2
+def threshold_otsu_batch(x: jnp.ndarray, nbins: int = 256) -> jnp.ndarray:
+    """Per-plane Otsu thresholds for a (B, H, W) batch: :func:`threshold_otsu`
+    vmapped over the leading axis. Integer planes (raw uint16) are binned in
+    float32, which represents every 16-bit value exactly."""
+    xv = (
+        x if jnp.issubdtype(x.dtype, jnp.floating)
+        else x.astype(jnp.float32)
     )
-    idx = jnp.argmax(variance12, axis=1)
-    th = jnp.take_along_axis(centers, idx[:, None], axis=1)[:, 0]
-    return jnp.where(hi > lo, th, lo)
+    return jax.vmap(lambda p: threshold_otsu(p, nbins))(xv)

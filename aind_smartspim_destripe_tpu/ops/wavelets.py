@@ -1,17 +1,17 @@
 """
-2-D discrete wavelet transform (DWT/IDWT) for TPU, pywt-compatible semantics.
+2-D discrete wavelet transform (DWT/IDWT) in JAX, pywt-compatible semantics.
 
 The reference pipeline decomposes every image plane with
 ``pywt.wavedec2(img, wavelet="db3", level=None)`` using the default
 "symmetric" (half-sample) signal extension, filters the horizontal-detail
 bands, and reconstructs with ``pywt.waverec2`` (reference:
 code/aind_smartspim_destripe/filtering.py:176,221). This module rebuilds that
-contract TPU-natively:
+contract as matmuls on the device:
 
 - Daubechies filter banks are generated by spectral factorization (no PyWavelets
   dependency) and verified against the published db1..db4 coefficients in tests.
 - One DWT level = a single strided 2-D convolution with 4 separable kernels
-  (outer products of the 1-D lo/hi filters), which XLA maps onto the MXU.
+  (outer products of the 1-D lo/hi filters).
 - One IDWT level = a single input-dilated ("transposed") 2-D convolution.
 - All shapes are static: the per-level shape ladder is a pure function of the
   input geometry, so the whole multi-level transform jits cleanly.
@@ -214,12 +214,11 @@ def wavedec2_shapes(
 
 
 # ---------------------------------------------------------------------------
-# Banded-matrix operators (the TPU fast path)
+# Banded-matrix operators (the destripe graph's DWT form)
 #
-# A DWT level along one axis is a banded linear map; on TPU a dense matmul on
-# the MXU beats strided/dilated convolutions by a wide margin (the synthesis
-# conv in particular lowers to an input-dilated convolution that runs orders
-# of magnitude below MXU speed-of-light). The operators are built once per
+# A DWT level along one axis is a banded linear map, applied as a dense
+# matmul against a per-geometry operator (the synthesis conv would lower to
+# an input-dilated convolution instead). The operators are built once per
 # (axis length, wavelet) in float64 and cached.
 # ---------------------------------------------------------------------------
 
@@ -269,22 +268,25 @@ def synthesis_operator(coeff_len: int, wavelet_name: str) -> np.ndarray:
     return S.astype(np.float32)
 
 
-# HIGH (bf16x3 on the MXU) measures 96.8 dB PSNR against HIGHEST (bf16x6) on
-# the full destripe kernel at production geometry — far above the 60 dB
-# fidelity budget — while running ~1.35x faster and compiling ~13x faster.
-_PRECISION = jax.lax.Precision.HIGH
+# Precision of every operator matmul of the filter (DWT analysis/synthesis,
+# notch): the one named constant each einsum/matmul site reads at trace
+# time. bf16 x3 (f32 accumulation) is the cheapest setting that clears the
+# 60 dB PSNR gate against the float64 oracle with a margin on every plane
+# of an intensity sweep up to 45000 counts on the H100; Precision.HIGH
+# lowers to TF32 there and keeps ~1 dB at the bright end (PERF.md, "Matmul
+# precision").
+MATMUL_PRECISION = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
 
 
 # ---------------------------------------------------------------------------
-# Blocked shift-invariant operators (the default TPU fast path)
+# Blocked shift-invariant operators (the default path of dwt2/idwt2)
 #
 # Once the symmetric extension is materialized into the data, the banded
 # analysis/synthesis maps are shift-invariant: every block of 64 (analysis)
 # or 128 (synthesis) consecutive outputs is the SAME small matrix applied to
 # a short overlapping window of the input. That turns each DWT axis pass
 # into one huge batched (K x 2R) matmul with K ~= 132 — about n/K (~12-15x
-# at production width) fewer FLOPs than the dense per-geometry operators,
-# while still living entirely on the MXU.
+# at production width) fewer FLOPs than the dense per-geometry operators.
 # ---------------------------------------------------------------------------
 
 _AN_R = 64  # analysis outputs per block (per filter)
@@ -350,7 +352,7 @@ def _an_pass_last(x: jax.Array, wav: Wavelet) -> Tuple[jax.Array, jax.Array]:
     win = jnp.concatenate([base, halo], axis=-1)  # (..., nq, K)
 
     M = jnp.asarray(_blocked_analysis_mat(wav.name))
-    out = jnp.einsum("...qk,kr->...qr", win, M, precision=_PRECISION)
+    out = jnp.einsum("...qk,kr->...qr", win, M, precision=MATMUL_PRECISION)
     lo = out[..., :R].reshape(lead + (nq * R,))[..., :L]
     hi = out[..., R:].reshape(lead + (nq * R,))[..., :L]
     return lo, hi
@@ -380,81 +382,13 @@ def _syn_pass_last(lo: jax.Array, hi: jax.Array, wav: Wavelet) -> jax.Array:
 
     win = jnp.concatenate([windows(lo_p), windows(hi_p)], axis=-1)  # (..., nq, 2T)
     out = jnp.einsum(
-        "...qk,kr->...qr", win, jnp.asarray(M), precision=_PRECISION
-    )
-    return out.reshape(lead + (nq * R_out,))[..., :out_len]
-
-
-def an_lo_pass_last(x: jax.Array, wav: Wavelet) -> jax.Array:
-    """Lowpass-only analysis along the last axis -> (..., L): the blocked
-    shift-invariant equivalent of applying the dense ``an_x_lo`` operator
-    (:meth:`filter.DestripePlan.constants`). The destripe filter's x-pass
-    consumes only cA/cH — only lowpass-x outputs — and this form costs
-    O(flen) operator bytes independent of the axis length where the dense
-    operator is O(n^2): at the Y-halo path's beyond-HBM plane widths the
-    dense x operators (~W^2/2 f32 per level) stop fitting on host or chip
-    (SURVEY §5 long-context analog; no reference counterpart)."""
-    flen = wav.flen
-    n = x.shape[-1]
-    L = dwt_coeff_len(n, flen)
-    R = _AN_R
-    nq = -(-L // R)
-
-    ext = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(flen - 1, flen - 1)], mode="symmetric")
-    need = 1 + 2 * R * (nq + 1)
-    if ext.shape[-1] < need:
-        ext = jnp.pad(ext, [(0, 0)] * (x.ndim - 1) + [(0, need - ext.shape[-1])])
-
-    lead = x.shape[:-1]
-    base = ext[..., 1 : 1 + 2 * R * nq].reshape(lead + (nq, 2 * R))
-    halo = ext[..., 1 + 2 * R : 1 + 2 * R + 2 * R * nq].reshape(lead + (nq, 2 * R))[
-        ..., : flen - 2
-    ]
-    win = jnp.concatenate([base, halo], axis=-1)  # (..., nq, K)
-
-    M = jnp.asarray(_blocked_analysis_mat(wav.name)[:, :_AN_R])
-    out = jnp.einsum("...qk,kr->...qr", win, M, precision=_PRECISION)
-    return out.reshape(lead + (nq * R,))[..., :L]
-
-
-def syn_lo_pass_last(lo: jax.Array, wav: Wavelet, out_len: int) -> jax.Array:
-    """Lowpass-only synthesis along the last axis, cropped to ``out_len``
-    output samples: the blocked equivalent of applying the dense trimmed
-    ``syn_x_lo`` operator (``synthesis_operator(L)[:out_len, :L]``). Same
-    tap algebra as :func:`_syn_pass_last` restricted to the lowpass window
-    half — with global output s = q*R_out + s' and coefficient t = q*H + t',
-    j = s' + flen - 2 - 2 t' == s + flen - 2 - 2 t, and every dense-valid
-    tap lands inside the block window (t' in [0, T))."""
-    flen = wav.flen
-    L = lo.shape[-1]
-    M_full, T = _blocked_synthesis_mat(wav.name)
-    M = M_full[:T]
-    R_out = M.shape[1]
-    H = R_out // 2
-    nq = -(-out_len // R_out)
-
-    need = H * nq + T
-    pad = [(0, 0)] * (lo.ndim - 1) + [(0, max(0, need - L))]
-    lo_p = jnp.pad(lo, pad)
-    lead = lo.shape[:-1]
-    base = lo_p[..., : H * nq].reshape(lead + (nq, H))
-    halo = lo_p[..., H : H + H * nq].reshape(lead + (nq, H))[..., : T - H]
-    win = jnp.concatenate([base, halo], axis=-1)  # (..., nq, T)
-    out = jnp.einsum(
-        "...qk,kr->...qr", win, jnp.asarray(M), precision=_PRECISION
+        "...qk,kr->...qr", win, jnp.asarray(M), precision=MATMUL_PRECISION
     )
     return out.reshape(lead + (nq * R_out,))[..., :out_len]
 
 
 def _swap(x):
     return jnp.swapaxes(x, -1, -2)
-
-
-def set_matmul_precision(p) -> None:
-    """Override the DWT matmul precision (HIGH by default; HIGHEST trades
-    ~1.4x throughput and much slower compiles for bf16x6 accumulation)."""
-    global _PRECISION
-    _PRECISION = p
 
 
 # ---------------------------------------------------------------------------
@@ -523,8 +457,8 @@ def dwt2(
 
     h, w = x.shape[-2:]
     A_y, A_x = ops
-    t = jnp.einsum("ih,...hw->...iw", A_y, x, precision=_PRECISION)
-    y = jnp.einsum("...iw,jw->...ij", t, A_x, precision=_PRECISION)
+    t = jnp.einsum("ih,...hw->...iw", A_y, x, precision=MATMUL_PRECISION)
+    y = jnp.einsum("...iw,jw->...ij", t, A_x, precision=MATMUL_PRECISION)
     L_h = A_y.shape[0] // 2
     L_w = A_x.shape[0] // 2
     aa = y[..., :L_h, :L_w]
@@ -555,15 +489,15 @@ def idwt2(
     top = jnp.concatenate([ca, cv], axis=-1)  # lowpass-y: [aa | ad]
     bot = jnp.concatenate([ch, cd], axis=-1)  # highpass-y: [da | dd]
     c2 = jnp.concatenate([top, bot], axis=-2)
-    t = jnp.einsum("ih,...hw->...iw", S_y, c2, precision=_PRECISION)
-    return jnp.einsum("...iw,jw->...ij", t, S_x, precision=_PRECISION)
+    t = jnp.einsum("ih,...hw->...iw", S_y, c2, precision=MATMUL_PRECISION)
+    return jnp.einsum("...iw,jw->...ij", t, S_x, precision=MATMUL_PRECISION)
 
 
 def dwt2_conv(
     x: jax.Array, wav: Wavelet
 ) -> Tuple[jax.Array, Tuple[jax.Array, jax.Array, jax.Array]]:
     """Strided-convolution analysis (reference implementation for
-    cross-checking the MXU path; slower on TPU)."""
+    cross-checking the matmul path)."""
     flen = wav.flen
     batch_shape = x.shape[:-2]
     h, w = x.shape[-2:]
@@ -599,7 +533,7 @@ def idwt2_conv(
     wav: Wavelet,
 ) -> jax.Array:
     """Input-dilated-convolution synthesis (reference implementation for
-    cross-checking the MXU path; slower on TPU)."""
+    cross-checking the matmul path)."""
     flen = wav.flen
     ch, cv, cd = details
     batch_shape = ca.shape[:-2]
@@ -627,23 +561,16 @@ def analysis_operators(
     shape: Tuple[int, int],
     wav: Wavelet,
     level: int | None = None,
-    x_skip_min: int | None = None,
 ):
     """Per-level (A_y, A_x) numpy operator pairs for :func:`wavedec2`,
-    finest level first (application order). ``x_skip_min``: levels whose
-    input width reaches it get ``A_x = None`` — the dense x operator is
-    O(w^2) and is never even built on host; callers use the blocked
-    :func:`an_lo_pass_last` for those levels instead."""
+    finest level first (application order)."""
     n_levels, _ = wavedec2_shapes(shape, wav, level)
     ops = []
     h, w = shape
     for _ in range(n_levels):
-        A_x = (
-            None
-            if x_skip_min is not None and w >= x_skip_min
-            else analysis_operator(w, wav.name)
+        ops.append(
+            (analysis_operator(h, wav.name), analysis_operator(w, wav.name))
         )
-        ops.append((analysis_operator(h, wav.name), A_x))
         h, w = dwt_coeff_len(h, wav.flen), dwt_coeff_len(w, wav.flen)
     return ops
 
@@ -652,27 +579,19 @@ def synthesis_operators(
     shape: Tuple[int, int],
     wav: Wavelet,
     level: int | None = None,
-    x_skip_min: int | None = None,
 ):
     """Per-level (S_y, S_x) numpy operator pairs for :func:`waverec2`,
     coarsest level first (application order). Each level's operators act on
     the *detail* band geometry, and their output rows are pre-trimmed to the
     next level's detail shape (final level: the image shape) — folding
     waverec2's crop-by-one rule and the final crop into the matmul instead
-    of emitting large slice copies. ``x_skip_min``: levels whose output
-    width reaches it get ``S_x = None`` (see :func:`analysis_operators`;
-    callers use :func:`syn_lo_pass_last` there)."""
+    of emitting large slice copies."""
     _, ladder = wavedec2_shapes(shape, wav, level)
     targets = list(ladder[1:]) + [shape]
     ops = []
     for (h, w), (th, tw) in zip(ladder, targets):
         S_y = synthesis_operator(h, wav.name)[:th]
-        S_x = (
-            None
-            if x_skip_min is not None and tw >= x_skip_min
-            else synthesis_operator(w, wav.name)[:tw]
-        )
-        ops.append((S_y, S_x))
+        ops.append((S_y, synthesis_operator(w, wav.name)[:tw]))
     return ops
 
 

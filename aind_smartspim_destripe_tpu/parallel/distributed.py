@@ -1,10 +1,10 @@
 """
-Multi-host runtime helpers (DCN tier).
+Multi-host runtime helpers (the host-network tier).
 
-The reference is strictly single-node (SURVEY.md section 2.4). At pod scale
+The reference is strictly single-node (SURVEY.md section 2.4). Across hosts
 the natural decomposition is: tiles/channels across hosts (each host owns the
-Zarr IO for its tiles — DCN only carries control), planes across the chips of
-each host (ICI). These helpers wire that up:
+Zarr IO for its tiles — the host network only carries control), planes across
+the devices of each host. These helpers wire that up:
 
 - ``initialize_distributed``: jax.distributed.initialize wrapper (no-op on a
   single process),
@@ -54,7 +54,7 @@ def assign_tiles(tiles: Sequence, process_index: Optional[int] = None,
                  process_count: Optional[int] = None) -> List:
     """Deterministic round-robin tile ownership: host i processes tiles
     i, i+P, i+2P, ... — each host streams only its own Zarr tiles, so bulk
-    image data never crosses DCN."""
+    image data never crosses hosts."""
     pi = jax.process_index() if process_index is None else process_index
     pc = jax.process_count() if process_count is None else process_count
     ordered = sorted(tiles, key=str)
@@ -69,7 +69,7 @@ def host_local_mesh(axis: str = "z") -> jax.sharding.Mesh:
 def global_stats(values: np.ndarray) -> np.ndarray:
     """Sum a small per-host stats vector across all hosts: each process
     contributes its local vector as one row of a process-sharded array and a
-    replicated jitted sum reduces it (XLA inserts the DCN collective).
+    replicated jitted sum reduces it (XLA inserts the cross-host collective).
     Identity in single-process runs."""
     values = np.asarray(values)
     if jax.process_count() == 1:

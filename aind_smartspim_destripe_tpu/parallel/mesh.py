@@ -2,19 +2,19 @@
 Multi-chip scaling of the destripe pipeline via jax.sharding.
 
 The reference's only parallelism is a single-node process pool over Z-blocks
-(SURVEY.md section 2.4). The TPU-native equivalent: a device mesh where
+(SURVEY.md section 2.4). The equivalent here: a device mesh where
 
 - the ``z`` axis shards independent planes (data parallelism — the filter is
-  per-plane, so the compute needs no cross-chip communication),
+  per-plane, so the compute needs no cross-device communication),
 - the ``y`` axis (optional) shards rows of each plane for the flat-field and
   statistics stages (sequence-parallel analog); global reductions
-  (normalize_image min/max, classifier means, BaSiC norms) ride ICI via
-  psum/pmin/pmax inside shard_map.
+  (normalize_image min/max, classifier means, BaSiC norms) ride the
+  device interconnect (NVLink on a multi-GPU host) via psum/pmin/pmax
+  inside shard_map.
 
-Plane geometry stays whole per chip for the wavelet/FFT stages (a 1600x2000
-fp32 plane is ~12.8 MB — far under HBM; VMEM tiling is XLA's job), which is
-the right TPU mapping: batch the embarrassingly-parallel axis, keep the
-transform axes local.
+Plane geometry stays whole per device for the wavelet/FFT stages (a
+1600x2000 fp32 plane is ~12.8 MB — far under device memory): batch the
+embarrassingly-parallel axis, keep the transform axes local.
 """
 
 from __future__ import annotations
@@ -55,10 +55,10 @@ def make_mesh_2d(
     axes: Tuple[str, str] = ("tile", "z"),
 ) -> Mesh:
     """2-D mesh (tile, z): outer axis shards independent tiles/channels (the
-    multi-host DCN-friendly axis), inner axis shards planes within a tile
-    (ICI-local). Both are data axes — the filter needs no cross-chip math —
-    but the 2-D layout is what a v5e pod slice runs: tiles across hosts,
-    planes across the chips of each host."""
+    axis that may span hosts), inner axis shards planes within a tile
+    (host-local). Both are data axes — the filter needs no cross-device
+    math — but the 2-D layout is what a multi-host run uses: tiles across
+    hosts, planes across the devices of each host."""
     devices = jax.devices()
     if n_devices is not None:
         devices = devices[:n_devices]
@@ -82,13 +82,13 @@ def sharded_destripe_step(
     with_flatfield: bool = True,
     axis: str = "z",
 ):
-    """Build the jitted multi-chip step: (B, H, W) uint16 planes sharded over
+    """Build the jitted multi-device step: (B, H, W) uint16 planes sharded over
     ``axis`` -> destripe -> shadow-correct -> uint16, plus a psum'd global
-    min/max (the cross-chip reduction used for normalization statistics).
+    min/max (the cross-device reduction used for normalization statistics).
 
     Flat/dark are replicated (they are per-tile constants). XLA partitions
-    the per-plane compute with zero collectives; only the stats reduce over
-    ICI.
+    the per-plane compute with zero collectives; only the stats reduce
+    across devices.
     """
     in_spec = NamedSharding(mesh, P(axis, None, None))
     rep = NamedSharding(mesh, P())
@@ -131,7 +131,7 @@ def sharded_destripe_step_2d(
     """Multi-tile step on a 2-D mesh: input (T, B, H, W) with tiles sharded
     over ``axes[0]`` and planes over ``axes[1]``; per-tile flats (T, H, W)
     shard over the tile axis only. Global per-tile min/max stats reduce over
-    the z axis (ICI), demonstrating the two-level collective layout."""
+    the z axis, demonstrating the two-level collective layout."""
     in_spec = NamedSharding(mesh, P(axes[0], axes[1], None, None))
     flat_spec = NamedSharding(mesh, P(axes[0], None, None))
     rep = NamedSharding(mesh, P())
@@ -167,7 +167,8 @@ def sharded_destripe_step_2d(
 
 
 def global_minmax(mesh: Mesh, x: jax.Array, axis: str = "z") -> Tuple[jax.Array, jax.Array]:
-    """Explicit shard_map collective: per-shard min/max reduced over ICI."""
+    """Explicit shard_map collective: per-shard min/max reduced across the
+    mesh axis."""
 
     @partial(
         jax.shard_map,
@@ -186,7 +187,7 @@ def global_minmax(mesh: Mesh, x: jax.Array, axis: str = "z") -> Tuple[jax.Array,
 
 def sharded_normalize_image(mesh: Mesh, images: jax.Array, axis: str = "z"):
     """normalize_image (reference filtering.py:227-250) over a sharded stack:
-    global min/max via ICI collectives, then the local [1,2] float16 map."""
+    global min/max via mesh collectives, then the local [1,2] float16 map."""
     x = shard_planes(mesh, images, axis)
     xf = x.astype(jnp.float32)  # one cast: two would allocate the f32 stack twice
     lo, hi = global_minmax(mesh, xf, axis)

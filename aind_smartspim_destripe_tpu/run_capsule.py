@@ -89,7 +89,8 @@ def run(
     """Validate inputs and destripe every channel (reference
     run_capsule.py:308-421). Multi-host aware: when the DESTRIPE_COORDINATOR
     env vars are set, jax.distributed comes up and each process destripes a
-    disjoint tile subset (provenance JSON written by process 0 only)."""
+    disjoint tile subset (provenance JSON written by process 0 only).
+    Returns ``{channel: {tile: PipelineStats}}`` for this process's tiles."""
     from .parallel.distributed import initialize_distributed
 
     process_index, process_count = initialize_distributed()
@@ -99,8 +100,8 @@ def run(
     data_folder = Path(os.path.abspath(data_folder))
     results_folder = Path(os.path.abspath(results_folder))
     # accepted-for-parity and unused, like the reference (run_capsule.py:313
-    # computes the same path and never reads it; the TPU pipeline streams
-    # through memory instead of a scratch tree)
+    # computes the same path and never reads it; the device pipeline
+    # streams through memory instead of a scratch tree)
     Path(os.path.abspath(scratch_folder))
 
     missing_files = validate_capsule_inputs([f"{data_folder}/acquisition.json"])
@@ -135,7 +136,9 @@ def run(
 
     if not len(channels):
         print(f"No channels to process in {data_folder}")
-        return
+        return {}
+
+    all_stats = {}
 
     for channel_name in channels:
         estimated_channel_flats = _natsorted(
@@ -167,7 +170,7 @@ def run(
                 )
 
         destriping_start_time = time()
-        zarr_destriper.destripe_channel(
+        all_stats[channel_name] = zarr_destriper.destripe_channel(
             zarr_dataset_path=data_folder,
             channel_name=channel_name,
             results_folder=results_folder,
@@ -188,6 +191,7 @@ def run(
                 end_time=destriping_end_time,
                 output_directory=str(results_folder),
             )
+    return all_stats
 
 
 if __name__ == "__main__":

@@ -1,14 +1,14 @@
 """
 Streaming destripe pipeline: Zarr slabs -> device batches -> Zarr, overlapped.
 
-TPU-native replacement for the reference's producer/consumer process pool
+Single-process replacement for the reference's producer/consumer process pool
 (zarr_destriper.py:797-906, 1132-1172) and its external shared-memory data
 loader (SURVEY.md L1b). One process, three overlapped stages:
 
   [reader threads]  decode input Zarr chunks for slab k+1..k+prefetch
         |           (native blosc codec drops the GIL -> real parallelism)
   [devices]         destripe+flatfield jit on fixed-size plane batches,
-        |           sharded over ALL local chips via a 1-D z mesh (planes
+        |           sharded over ALL local devices via a 1-D z mesh (planes
         |           are independent — zero collectives); uint16 in / uint16
         |           out so PCIe traffic is halved, with JAX async dispatch
         |           double-buffering H2D/compute/D2H
@@ -56,9 +56,6 @@ class PipelineStats:
     write_s: float = 0.0
     wall_s: float = 0.0
     pixels: int = 0
-    # True when the device step sharded ROWS over the mesh (the Y-halo
-    # route above DESTRIPE_HALO_THRESHOLD_BYTES) instead of planes
-    halo: bool = False
     # per-slab records [(z0, z1, read_wait_s, compute_s)] — read_wait is
     # the time the loop BLOCKED on the prefetched read (0 when it overlapped
     # fully with the previous slab's compute); write seconds live on the
@@ -92,19 +89,11 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     epilogue then applies to the blended plane.
 
     ``devices``: the accelerators to spread each batch over. With more than
-    one, a 1-D ``z`` mesh shards the plane axis — the TPU equivalent of the
-    reference's producer + ``co_cpus`` consumers (zarr_destriper.py:1136-1172):
-    per-plane compute needs no cross-chip communication, so each chip runs
-    the full kernel (Pallas programs included, via shard_map) on its shard.
-    Flats and operator constants are replicated.
-
-    When one plane is too large for a single chip (plane f32 bytes above
-    ``DESTRIPE_HALO_THRESHOLD_BYTES``, default 1 GiB), the same mesh shards
-    the ROW axis instead and the step runs the Y-halo-sharded kernel
-    (parallel/halo.py): halo exchange over ICI per wavelet pass, coarse
-    levels replicated, identical filter semantics on the dense math path.
-    Dual-band composes with it (dual_band_destripe_y_sharded: both bands
-    from one row-sharded decomposition, GSPMD-partitioned blend).
+    one, a 1-D ``z`` mesh shards the plane axis — the device equivalent of
+    the reference's producer + ``co_cpus`` consumers
+    (zarr_destriper.py:1136-1172): per-plane compute needs no cross-device
+    communication, so each device runs the full kernel (via shard_map) on
+    its shard. Flats and operator constants are replicated.
 
     The returned callable carries helpers for the caller's data placement:
     ``.put(chunk)`` shards/transfers a (B, H, W) numpy batch, ``.put_const``
@@ -116,8 +105,7 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
     def local_step(images, flat, dark, consts):
         if dual:
             # Dual-band: blend first (both bands from one decomposition),
-            # then the epilogue on the blended float plane — the fused
-            # in-kernel epilogues below assume the single-band synthesis.
+            # then the epilogue on the blended float plane.
             from ..ops.dual_band import dual_band_destripe_batch
 
             blended = dual_band_destripe_batch(
@@ -126,12 +114,11 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
             if with_flatfield:
                 return flatfield_correction(blended, flat, dark)
             return wrap_cast(blended)
-        # Epilogues fuse into the destripe kernel (on the Pallas band path
-        # they run inside the final synthesis program — one less full-image
-        # HBM round trip): flat-field correction when flats are provided,
-        # else the zarr-store wrap cast (zarr_destriper.py:336 assigns the
-        # unclipped float into a uint16 zarr, which wraps modulo 2**16 via
-        # numpy astype; a bare XLA astype would saturate instead).
+        # Epilogues fuse into the destripe graph: flat-field correction
+        # when flats are provided, else the zarr-store wrap cast
+        # (zarr_destriper.py:336 assigns the unclipped float into a uint16
+        # zarr, which wraps modulo 2**16 via numpy astype; a bare XLA
+        # astype would saturate instead).
         if with_flatfield:
             return destripe_batch(
                 plan, images, microscope_high_int, consts,
@@ -139,16 +126,6 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
             )
         return destripe_batch(
             plan, images, microscope_high_int, consts, wrap=True
-        )
-
-    plane_bytes = plan.height * plan.width * 4
-    halo_threshold = int(
-        os.environ.get("DESTRIPE_HALO_THRESHOLD_BYTES", str(1 << 30))
-    )
-    if n_dev > 1 and plane_bytes > halo_threshold:
-        return _make_halo_step(
-            plan, microscope_high_int, with_flatfield, devices,
-            dual=dual, crossover=crossover, dual_threshold=dual_threshold,
         )
 
     if n_dev == 1:
@@ -179,135 +156,14 @@ def make_device_step(plan: DestripePlan, microscope_high_int: float,
             mesh=mesh,
             in_specs=(P("z", None, None), P(), P(), P()),
             out_specs=P("z", None, None),
-            # pallas_call outputs carry no varying-across-mesh annotation;
-            # the body is per-plane (no collectives), so the vma analysis
-            # has nothing to verify anyway
+            # the body is per-plane (no collectives): the vma analysis has
+            # nothing to verify
             check_vma=False,
         )(images, flat, dark, consts)
 
     fn = lambda images, flat, dark: step(images, flat, dark, consts)
     fn.n_devices = n_dev
     fn.put = lambda chunk: jax.device_put(chunk, in_spec)
-    fn.put_const = lambda c: jax.device_put(c, rep)
-    return fn
-
-
-def _make_halo_step(plan, microscope_high_int, with_flatfield, devices,
-                    dual=False, crossover=100.0, dual_threshold=-1.0):
-    """Device step for beyond-single-chip planes: ROWS sharded over the 1-D
-    z mesh via the halo-exchange kernel (parallel/halo.py). Same uint16 ->
-    uint16 contract as the plane-sharded step; batches stay small (each
-    plane's rows occupy the whole mesh). ``dual=True`` routes through the
-    row-sharded dual-band form (both bands from one sharded decomposition,
-    GSPMD-partitioned blend, epilogue on the blended plane)."""
-    from ..parallel.halo import (
-        banded_x_min_w_default,
-        destripe_y_sharded,
-        dual_band_destripe_y_sharded,
-        halo_constants,
-    )
-
-    # Rows that don't divide the pool are handled by a pad -> crop
-    # sandwich that keeps the NUMERICS on exactly H rows: put() zero-pads
-    # the uint16 batch to the next mesh multiple (device_put requires an
-    # evenly divisible sharded axis), the jitted step CROPS the pad off
-    # before any math (so the symmetric boundary extension and the
-    # per-plane classifier/Otsu statistics see the real plane), and pads
-    # the output back for the even out_sharding. GSPMD partitions the
-    # uneven intermediates itself; callers crop via ``fn.pad_rows``.
-    n_dev = len(devices)
-    H_rows = plan.height
-    pad_rows = -(-H_rows // n_dev) * n_dev - H_rows
-    mesh = Mesh(np.asarray(devices), ("z",))
-    row_spec = NamedSharding(mesh, P(None, "z", None))
-    rep = NamedSharding(mesh, P())
-    # width-gate the x operators: beyond-threshold levels carry None and
-    # the halo kernel runs them banded/spectral (O(1) operator memory)
-    dense = plan.constants(
-        dense_only=True, banded_x_min_w=banded_x_min_w_default()
-    )
-    halo_arrays, halo_static = halo_constants(
-        plan, n_dev, notch_blocks=not dual
-    )
-    # The per-shard Pallas tier replaces the dense x matmuls wherever its
-    # blocked K1/K4 operators exist — drop those dense operators from the
-    # device constants (at 16k widths they are ~0.5 GB EACH of HBM). The
-    # DESTRIPE_HALO_PALLAS=0 escape hatch then takes the banded/spectral
-    # x fallback for those levels (the documented <=1 LSB
-    # cross-formulation), not the dense matmuls.
-    if "xk1" in halo_static:
-        an_x = list(dense["an_x_lo"])
-        for lvl in halo_static["xk1"]:
-            an_x[lvl] = None
-        dense["an_x_lo"] = tuple(an_x)
-    if "xk4" in halo_static:
-        syn_x = list(dense["syn_x_lo"])
-        for i in halo_static["xk4"]:
-            syn_x[i] = None
-        dense["syn_x_lo"] = tuple(syn_x)
-    # Likewise the dense compute-both-bands notch operators superseded by
-    # the per-plane-selected chunked banks (halo_arrays["notch"], ~same
-    # bytes as the dense cat they replace — keeping both would double the
-    # dominant HBM constant). Single-band only: the dual step's static
-    # band split multiplies the dense cat half-per-half already. Under
-    # DESTRIPE_HALO_PALLAS=0 these levels then run the spectral notch (the
-    # documented banded/spectral fallback, like the dropped x operators).
-    # Interpret-mode (CI) runs KEEP the cat: geometries there are tiny and
-    # the kill-switch twin then compares against the dense formulation —
-    # XLA's CPU fft thunk also RET_CHECKs on the sharded production
-    # layout (fft_thunk.cc IsMonotonicWithDim0Major), so the spectral
-    # fallback is TPU-only in practice.
-    from ..ops.pallas_env import interpret_forced
-
-    if not dual and "notch" in halo_static and not interpret_forced():
-        cat = list(dense["notch_cat"])
-        for i in halo_static["notch"]:
-            cat[i] = None
-        dense["notch_cat"] = tuple(cat)
-    consts = jax.device_put(dense, rep)
-    harrs = jax.device_put(halo_arrays, rep)
-
-    @partial(jax.jit, donate_argnums=(0,), out_shardings=row_spec)
-    def step(images, flat, dark, consts, harrs):
-        if pad_rows:
-            images = images[:, :H_rows, :]  # crop BEFORE any math
-        if dual:
-            kw = dict(crossover=crossover, threshold=dual_threshold)
-            if with_flatfield:
-                out = dual_band_destripe_y_sharded(
-                    images, mesh, plan, consts, harrs, halo_static,
-                    flat=flat, dark=dark, **kw,
-                )
-            else:
-                out = dual_band_destripe_y_sharded(
-                    images, mesh, plan, consts, harrs, halo_static,
-                    wrap=True, **kw,
-                )
-        elif with_flatfield:
-            out = destripe_y_sharded(
-                images, mesh, plan, consts, harrs, halo_static,
-                microscope_high_int=microscope_high_int,
-                flat=flat, dark=dark,
-            )
-        else:
-            out = destripe_y_sharded(
-                images, mesh, plan, consts, harrs, halo_static,
-                microscope_high_int=microscope_high_int, wrap=True,
-            )
-        if pad_rows:
-            out = jnp.pad(out, [(0, 0), (0, pad_rows), (0, 0)])
-        return out
-
-    def put(chunk):
-        if pad_rows:
-            chunk = np.pad(chunk, [(0, 0), (0, pad_rows), (0, 0)])
-        return jax.device_put(chunk, row_spec)
-
-    fn = lambda images, flat, dark: step(images, flat, dark, consts, harrs)
-    fn.n_devices = n_dev
-    fn.shards_rows = True  # batch need not divide the mesh; rows do
-    fn.pad_rows = pad_rows  # crop fn(...)[:, :plan.height] when nonzero
-    fn.put = put
     fn.put_const = lambda c: jax.device_put(c, rep)
     return fn
 
@@ -379,9 +235,9 @@ class StreamingDestriper:
         self.plan = plan
         self.high_int = microscope_high_int
         self.slab = slab
-        # All visible accelerators by default: on a production v5e host one
-        # process drives every local chip (the mesh replaces the reference's
-        # consumer pool); pass an explicit 1-list to pin a single device.
+        # All visible accelerators by default: one process drives every
+        # local device (the mesh replaces the reference's consumer pool);
+        # pass an explicit 1-list to pin a single device.
         self.devices = (
             list(devices) if devices is not None else list(jax.local_devices())
         )
@@ -440,24 +296,9 @@ class StreamingDestriper:
             plan, microscope_high_int, self.with_flat, devices=self.devices,
             dual=dual, crossover=crossover, dual_threshold=dual_threshold,
         )
-        # Plane-sharded step: round the compiled batch up so every shard
-        # gets an equal plane count. The halo step shards ROWS instead —
-        # rounding its batch to n_dev multiples would inflate memory by up
-        # to n_dev-1 beyond-HBM planes per dispatch; its batch is instead
-        # CAPPED so the per-device working set of one dispatch stays under
-        # DESTRIPE_HALO_BATCH_BYTES (default 2 GiB). The ~8x factor is the
-        # kernel's per-plane f32 footprint relative to one plane: x + xlog
-        # + the coefficient/delta ladders + stacked synthesis temporaries
-        # (parallel/halo.py operator-memory accounting).
-        if getattr(self._step, "shards_rows", False):
-            plane_dev = h * w * 4 / max(1, self._step.n_devices)
-            budget = int(
-                os.environ.get("DESTRIPE_HALO_BATCH_BYTES", str(2 << 30))
-            )
-            cap = max(1, int(budget / (8.0 * plane_dev)))
-            self.device_batch = max(1, min(device_batch, cap))
-        else:
-            self.device_batch = -(-device_batch // n_dev) * n_dev
+        # round the compiled batch up so every shard gets an equal plane
+        # count
+        self.device_batch = -(-device_batch // n_dev) * n_dev
         self._flat = self._step.put_const(flat)
         self._dark = self._step.put_const(dark)
 
@@ -539,10 +380,6 @@ class StreamingDestriper:
         async dispatch overlap; returns uint16 (n,H,W)."""
         n = data.shape[0]
         b = self.device_batch
-        # halo steps with non-mesh-divisible rows return pad_rows extra
-        # zero rows (even out_sharding); crop them off at conversion
-        crop = getattr(self._step, "pad_rows", 0)
-        rows = data.shape[1]
         outs = []
         pending = deque()
         for i in range(0, n, b):
@@ -555,19 +392,17 @@ class StreamingDestriper:
             # keep at most 2 dispatches in flight (double buffering)
             while len(pending) > 2:
                 j, k, res = pending.popleft()
-                arr = np.asarray(res)[:k]
-                outs.append((j, arr[:, :rows] if crop else arr))
+                outs.append((j, np.asarray(res)[:k]))
         while pending:
             j, k, res = pending.popleft()
-            arr = np.asarray(res)[:k]
-            outs.append((j, arr[:, :rows] if crop else arr))
+            outs.append((j, np.asarray(res)[:k]))
         outs.sort(key=lambda t: t[0])
         return np.concatenate([o for _, o in outs], axis=0)
 
     # -- main loop ---------------------------------------------------------
 
     def run(self) -> PipelineStats:
-        stats = PipelineStats(halo=getattr(self._step, "shards_rows", False))
+        stats = PipelineStats()
         t_start = time.time()
         Z, H, W = self.zyx
         slabs = [(z0, min(z0 + self.slab, Z)) for z0 in range(0, Z, self.slab)]

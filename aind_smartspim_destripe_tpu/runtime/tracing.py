@@ -1,10 +1,10 @@
 """
-Device + host tracing (the reference's observability surface, TPU-grade).
+Device + host tracing (the reference's observability surface, extended).
 
 The reference samples host CPU/memory into a matplotlib PNG
 (utils.py:21-121) and prints wall-clock phase timings
 (zarr_destriper.py:1088-1199). Here that is kept (utils.ResourceProfiler)
-and extended with what a TPU deployment actually needs:
+and extended with what an accelerator deployment needs:
 
 - ``device_trace``: a context manager around ``jax.profiler`` emitting an
   XPlane trace viewable in TensorBoard/XProf,

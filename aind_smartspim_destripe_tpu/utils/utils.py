@@ -2,10 +2,10 @@
 Cross-cutting utilities: logging, resource profiling, environment limits,
 filesystem helpers (reference surface: utils/utils.py; see SURVEY.md C14).
 
-The resource profiler here is thread-based (the TPU pipeline is a single
+The resource profiler here is thread-based (the device pipeline is a single
 process — there are no worker forks to observe), sampling process+system CPU
 and memory on a cadence and rendering the same two-panel PNG the reference
-produces. TPU-side profiling hooks live in runtime/tracing.py.
+produces. Device profiling hooks live in runtime/tracing.py.
 """
 
 from __future__ import annotations

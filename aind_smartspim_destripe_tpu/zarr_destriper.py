@@ -3,7 +3,7 @@ Production Zarr destriping orchestrator (reference surface:
 code/aind_smartspim_destripe/zarr_destriper.py; see SURVEY.md C7/C9/C10).
 
 Same public API — ``destripe_channel`` / ``destripe_zarr`` / multiscale and
-metadata helpers — but the execution model is TPU-native: the reference's
+metadata helpers — but the execution model is device-first: the reference's
 producer queue + consumer process pool + Dask LocalCluster collapse into one
 process running the streaming device pipeline (runtime/pipeline.py) and a
 device windowed-mean pyramid (ops/multiscale.py).
@@ -348,11 +348,11 @@ def destripe_zarr(
 
     ``prediction_chunksize[0]`` sets the streamed Z-slab; ``n_workers`` caps
     IO threads (0 -> auto); ``target_size_mb``/``super_chunksize``/
-    ``batch_size`` are accepted for parameter parity (the TPU pipeline's
+    ``batch_size`` are accepted for parameter parity (the device pipeline's
     prefetch depth replaces the producer super-chunk staging).
 
     ``devices``: accelerators the pipeline shards each batch over (None ->
-    every local chip; the multi-chip analog of the reference's ``co_cpus``
+    every local device; the multi-device analog of the reference's ``co_cpus``
     consumer pool, zarr_destriper.py:1136-1172).
 
     ``parameters`` extras beyond the reference's cells/no_cells configs:
@@ -375,7 +375,7 @@ def destripe_zarr(
         raise ValueError(f"Provided workers {n_workers} > current workers {co_cpus}")
 
     logger = utils.create_logger(output_log_path=str(results_folder))
-    logger.info(f"{20 * '='} TPU Large-Scale Zarr Destriping {20 * '='}")
+    logger.info(f"{20 * '='} Large-Scale Zarr Destriping {20 * '='}")
     logger.info(f"Processing dataset {dataset_path}")
 
     from .runtime import enable_compile_cache
@@ -566,7 +566,7 @@ def destripe_channel(
 
         if jax.process_count() > 1:
             # Multi-host: each process owns a disjoint tile subset; bulk
-            # image bytes never cross DCN (parallel/distributed.py).
+            # image bytes never cross hosts (parallel/distributed.py).
             from .parallel.distributed import assign_tiles
 
             tiles = assign_tiles(tiles)

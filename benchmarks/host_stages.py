@@ -1,9 +1,9 @@
 """
 Host-side IO stage benchmarks at production geometry.
 
-SURVEY.md §7 ("Sustaining 2 GPix/s/chip is an I/O problem"): 2 GPix/s of
-uint16 in + out needs ~4 GB/s of Zarr decode and ~4 GB/s of encode on the
-host, overlapped with the device kernel. The device kernel rate is measured
+Sustaining the device rate is an I/O problem on the host (SURVEY.md §7):
+N GPix/s of uint16 in + out needs ~2N GB/s of Zarr decode and ~2N GB/s of
+encode on the host, overlapped with the device kernel. The device kernel rate is measured
 by bench.py (device-resident); this file measures every HOST stage of the
 streaming pipeline (runtime/pipeline.py) in isolation, at the production
 chunk geometry of the reference ((1,1,64,128,128) uint16 blosc-zstd-3
@@ -24,12 +24,13 @@ Usage: python benchmarks/host_stages.py [--threads N] [--slabs K]
 import argparse
 import json
 import os
+import shutil
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -152,7 +153,9 @@ def bench_codec_batch_threads(threads_list, repeats=4):
 
 
 def bench_zarr_store(slabs):
-    tmp = tempfile.mkdtemp()
+    tmp = os.path.join(ROOT, ".bench_work", "host_stages")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
     arr = ZarrArray.create(
         os.path.join(tmp, "bench.zarr"),
         (1, 1, slabs * Z, H, W),
@@ -203,8 +206,8 @@ def main():
     rd, wr = bench_zarr_store(args.slabs)
 
     # The overlapped pipeline sustains min(stage) — report the IO-side bound
-    # and whether it clears the 2 GPix/s (4 GB/s per direction) target.
     bound_gbs = min(rd, wr)
+    shutil.rmtree(os.path.join(ROOT, ".bench_work"), ignore_errors=True)
     print(
         json.dumps(
             {
@@ -212,7 +215,6 @@ def main():
                 "value": round(bound_gbs, 3),
                 "unit": "GB/s",
                 "equiv_mpix_s": round(bound_gbs * 1e3 / 2, 1),
-                "clears_2gpix_target": bound_gbs >= 4.0,
                 "note": "sustained e2e = min(read, device_compute, write); "
                 "device rate from bench.py",
             }

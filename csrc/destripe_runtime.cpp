@@ -17,8 +17,43 @@
 #include <thread>
 #include <atomic>
 
+#if __has_include(<zstd.h>) && !defined(DESTRIPE_DECLARE_ZSTD)
 #define ZSTD_STATIC_LINKING_ONLY  // ZSTD_c_literalCompressionMode
 #include <zstd.h>
+#else
+// Hosts that ship only the zstd runtime library (libzstd.so.1) lack the
+// development header. Declare the subset used here, with the values of
+// zstd.h 1.5 (ZSTD_c_literalCompressionMode is ZSTD_c_experimentalParam5;
+// a library that does not know it rejects the parameter and keeps its
+// default literal coding, which only costs ratio on the gated planes).
+extern "C" {
+typedef struct ZSTD_CCtx_s ZSTD_CCtx;
+typedef struct ZSTD_DCtx_s ZSTD_DCtx;
+typedef enum {
+  ZSTD_c_compressionLevel = 100,
+  ZSTD_c_literalCompressionMode = 1002,
+} ZSTD_cParameter;
+typedef enum {
+  ZSTD_reset_session_only = 1,
+  ZSTD_reset_parameters = 2,
+  ZSTD_reset_session_and_parameters = 3,
+} ZSTD_ResetDirective;
+typedef enum { ZSTD_ps_auto = 0, ZSTD_ps_enable = 1, ZSTD_ps_disable = 2 }
+    ZSTD_paramSwitch_e;
+ZSTD_CCtx* ZSTD_createCCtx(void);
+size_t ZSTD_freeCCtx(ZSTD_CCtx* cctx);
+ZSTD_DCtx* ZSTD_createDCtx(void);
+size_t ZSTD_freeDCtx(ZSTD_DCtx* dctx);
+size_t ZSTD_CCtx_reset(ZSTD_CCtx* cctx, ZSTD_ResetDirective reset);
+size_t ZSTD_CCtx_setParameter(ZSTD_CCtx* cctx, ZSTD_cParameter param,
+                              int value);
+size_t ZSTD_compress2(ZSTD_CCtx* cctx, void* dst, size_t dstCapacity,
+                      const void* src, size_t srcSize);
+size_t ZSTD_decompressDCtx(ZSTD_DCtx* dctx, void* dst, size_t dstCapacity,
+                           const void* src, size_t srcSize);
+unsigned ZSTD_isError(size_t code);
+}
+#endif
 
 #if defined(__AVX2__)
 #include <immintrin.h>

@@ -1,4 +1,4 @@
-"""Worker process for the 2-process jax.distributed test (multi-host DCN
+"""Worker process for the 2-process jax.distributed test (multi-host
 tier, SURVEY.md §5 "Distributed communication backend"). Launched by
 tests/test_distributed_multihost.py with a shared coordinator port; runs
 destripe_channel over a shared 4-tile channel and reports which tiles this
@@ -19,10 +19,10 @@ def main():
         int(sys.argv[4]),
         sys.argv[5],
     )
-    # "halo" mode (multi-host x Y-halo interplay test): each process runs
-    # its owned tiles with rows sharded over its LOCAL device mesh while
-    # tile ownership partitions over DCN; the resume-interplay phase is
-    # skipped (covered by the default mode).
+    # "mesh" mode (multi-host x local-mesh interplay test): each process
+    # runs its owned tiles with planes sharded over its LOCAL device mesh
+    # while tile ownership partitions across processes; the resume-interplay
+    # phase is skipped (covered by the default mode).
     mode = sys.argv[6] if len(sys.argv) > 6 else "full"
     import jax
 
@@ -61,7 +61,7 @@ def main():
     stats = run_channel()
     gs = global_stats(np.array([pid + 1.0, 1.0]))
 
-    if mode == "halo":
+    if mode == "mesh":
         json.dump(
             {
                 "process_id": pid,
@@ -69,14 +69,13 @@ def main():
                 "local_devices": jax.local_device_count(),
                 "tiles": sorted(stats),
                 "planes": {k: v.planes for k, v in stats.items()},
-                "halo": {k: v.halo for k, v in stats.items()},
                 "global_stats": np.asarray(gs).tolist(),
             },
             open(out_json, "w"),
         )
         return
 
-    # Resume interplay (VERDICT r3 #6): leave the channel HALF-completed —
+    # Resume interplay: leave the channel HALF-completed —
     # process 0 invalidates the journals of the first tile each process
     # owns — then both processes resume the whole channel. Owners must skip
     # exactly the still-committed slabs and recompute the invalidated ones.

@@ -1,5 +1,5 @@
 """
-Generate the BaSiCPy golden fixture for models/basic.py (VERDICT r3 #2).
+Generate the BaSiCPy golden fixture for models/basic.py.
 
 Run this ON A MACHINE WHERE BaSiCPy INSTALLS (it does not in the dev image
 — no network, and BaSiCPy is not baked in):

@@ -1,6 +1,6 @@
 """
 Independent numpy/scipy re-derivation of the reference destripe math, used as
-golden ground truth for the JAX/TPU kernels.
+golden ground truth for the JAX device graph.
 
 This is a test oracle only (not shipped). It mirrors the behavior of the
 reference pipeline (code/aind_smartspim_destripe/filtering.py) but is written
@@ -250,3 +250,38 @@ def flatfield_correction_ref(
         baseline = 0.0
     corrected = img / flatfield - baseline
     return np.clip(corrected, 0, 65535).astype(np.uint16)
+
+
+def dual_band_ref(
+    image: np.ndarray,
+    fore_config: dict,
+    back_config: dict,
+    crossover: float = 100.0,
+    threshold: float = -1.0,
+    smooth_size: int = 17,
+) -> np.ndarray:
+    """Float64 dual-band destripe of one plane: the single-band filter per
+    config, blended per pixel by the box-smoothed sigmoid foreground
+    fraction centered on the plane's Otsu threshold (``threshold`` < 0) or
+    on ``threshold``."""
+    from scipy import ndimage
+
+    img = np.asarray(image, dtype=np.float64)
+    h, w = img.shape
+    bands = [
+        log_space_fft_filtering_ref(
+            img,
+            wavelet_name=cfg.get("wavelet", "db3"),
+            level=cfg.get("level"),
+            sigma=cfg.get("sigma", 64),
+            max_threshold=cfg.get("max_threshold", 4),
+        )[:h, :w]
+        for cfg in (fore_config, back_config)
+    ]
+    center = (
+        threshold_otsu_ref(img.astype(np.float32)) if threshold < 0
+        else threshold
+    )
+    frac = 1.0 / (1.0 + np.exp(-(img - center) / crossover))
+    frac = ndimage.uniform_filter(frac, size=smooth_size, mode="nearest")
+    return bands[0] * frac + bands[1] * (1.0 - frac)

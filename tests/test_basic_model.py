@@ -129,7 +129,7 @@ def test_basic_production_parameters_full_reweights():
 
 
 def test_basic_cross_implementation_parity():
-    """Cross-implementation evidence (VERDICT r2 missing #2): BaSiCPy cannot
+    """Cross-implementation evidence: BaSiCPy cannot
     be installed in this runtime, so the independent float64 numpy oracle
     (tests/golden/basic_ref.py — same published model/update equations,
     separately implemented: explicit loops + scipy DCT vs float32
@@ -188,7 +188,7 @@ def test_transform_timelapse_subtracts_baseline():
 
 
 def test_matches_basicpy_golden_fixture():
-    """Field-level gate against REAL BaSiCPy output (VERDICT r3 #2).
+    """Field-level gate against REAL BaSiCPy output.
 
     The fixture is generated by tests/golden/make_basicpy_fixture.py on a
     machine where BaSiCPy installs (it cannot in this image: no network) and

@@ -197,7 +197,7 @@ def test_generate_data_processing(tmp_path):
 
 
 def test_processing_json_validates_against_vendored_schema(tmp_path):
-    """Pin the provenance contract (VERDICT round-2 missing #3): the emitted
+    """Pin the provenance contract: the emitted
     document must satisfy the vendored transcription of the aind-data-schema
     v1.x Processing model surface (reference run_capsule.py:134-175)."""
     import jsonschema

@@ -78,117 +78,14 @@ def test_dual_shared_decomposition_matches_two_single_runs(h, w):
     assert np.abs(both[:3] - both[3:]).max() > 0.1
 
 
-def test_pallas_blend_matches_xla_chain():
-    """Fused blend kernel (ops/pallas_blend.py) vs the XLA sigmoid ->
-    box-smooth -> mix chain, at a geometry with ragged row tiles (H not a
-    multiple of rows_tile) and a non-128 lane width."""
-    import jax.numpy as jnp
-
-    from aind_smartspim_destripe_tpu.ops import pallas_blend
-    from aind_smartspim_destripe_tpu.ops.dual_band import _smooth
-
-    rng = np.random.default_rng(3)
-    B, H, W = 2, 200, 260
-    x = rng.uniform(0.0, 4000.0, (B, H, W)).astype(np.float32)
-    fore = (x * 0.9 + rng.normal(size=(B, H, W)) * 5).astype(np.float32)
-    back = (x * 1.1 + rng.normal(size=(B, H, W)) * 5).astype(np.float32)
-    centers = rng.uniform(100.0, 400.0, (B,)).astype(np.float32)
-
-    frac = 1.0 / (1.0 + jnp.exp(-(jnp.asarray(x) - centers[:, None, None]) / 100.0))
-    sm = _smooth(frac, pallas_blend.RADIUS)
-    ref = np.asarray(fore * sm + back * (1.0 - sm))
-
-    # every rows_tile the on-chip sweep (benchmarks/kernel_sweep.py blend)
-    # may adopt must be parity-clean, including values that do not divide H
-    for rows_tile in (32, 48, 64, 96):
-        got = np.asarray(
-            pallas_blend.blend_smooth_mix(
-                jnp.asarray(x), jnp.asarray(fore), jnp.asarray(back),
-                jnp.asarray(centers), 100.0, rows_tile=rows_tile,
-                interpret=True,
-            )
-        )
-        np.testing.assert_allclose(
-            got, ref, rtol=2e-5, atol=2e-2,
-            err_msg=f"rows_tile={rows_tile}",
-        )
-
-
-def test_pallas_blend_stacked_pair_bitexact():
-    """back=None reads both bands from the stacked (2B, H, W) buffer by
-    block index (the round-5 split-copy removal) — output must be
-    BIT-identical to the split-argument call."""
-    import jax.numpy as jnp
-
-    from aind_smartspim_destripe_tpu.ops import pallas_blend
-
-    rng = np.random.default_rng(31)
-    B, H, W = 2, 200, 260
-    x = rng.uniform(0.0, 4000.0, (B, H, W)).astype(np.float32)
-    fore = (x * 0.9 + rng.normal(size=(B, H, W)) * 5).astype(np.float32)
-    back = (x * 1.1 + rng.normal(size=(B, H, W)) * 5).astype(np.float32)
-    centers = rng.uniform(100.0, 400.0, (B,)).astype(np.float32)
-    split = np.asarray(pallas_blend.blend_smooth_mix(
-        jnp.asarray(x), jnp.asarray(fore), jnp.asarray(back),
-        jnp.asarray(centers), 100.0, interpret=True,
-    ))
-    stacked = np.asarray(pallas_blend.blend_smooth_mix(
-        jnp.asarray(x), jnp.asarray(np.concatenate([fore, back])), None,
-        jnp.asarray(centers), 100.0, interpret=True,
-    ))
-    np.testing.assert_array_equal(split, stacked)
-    with pytest.raises(ValueError, match="stacked band pair"):
-        pallas_blend.blend_smooth_mix(
-            jnp.asarray(x), jnp.asarray(fore), None,
-            jnp.asarray(centers), 100.0, interpret=True,
-        )
-
-
-def test_dual_band_fused_blend_wiring(monkeypatch):
-    """dual_band_destripe_batch dispatches to the fused blend kernel above
-    the size gate; its output must match the XLA formulation end to end."""
-    import os
-
-    import jax.numpy as jnp
-
-    from aind_smartspim_destripe_tpu.ops.dual_band import dual_band_destripe_batch
-    from aind_smartspim_destripe_tpu.ops.filter import build_plan, FilterConfig
-
-    h, w = 560, 720  # >= band gate per side, h*w >= 400k (blend gate)
-    plan = build_plan(
-        h, w,
-        FilterConfig(wavelet="db3", level=None, sigma=256, max_threshold=12),
-        FilterConfig(wavelet="db3", level=None, sigma=128, max_threshold=12),
-    )
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(np.clip(
-        400 + (rng.normal(size=(1, h, 1)) * 60) * np.ones((1, 1, w))
-        + rng.normal(size=(1, h, w)) * 10, 0, 65535).astype(np.float32))
-
-    os.environ["DESTRIPE_NO_PALLAS"] = "1"
-    try:
-        dense = np.asarray(dual_band_destripe_batch(plan, x, 100.0, -1.0))
-    finally:
-        del os.environ["DESTRIPE_NO_PALLAS"]
-
-    monkeypatch.setenv("DESTRIPE_PALLAS_INTERPRET", "1")
-    got = np.asarray(dual_band_destripe_batch(plan, x, 100.0, -1.0))
-    mse = float(np.mean((got - dense) ** 2))
-    psnr = 10.0 * np.log10(65535.0 ** 2 / max(mse, 1e-12))
-    assert psnr >= 60.0, f"fused-blend dual PSNR {psnr:.1f} dB < 60"
-
-
 def test_dual_band_matches_independent_float64_oracle():
     """Independent end-to-end oracle for config 2: compose the dual output
     in float64 numpy from the golden single-band filter
     (G.log_space_fft_filtering_ref per config), the golden per-plane Otsu
     center on the raw plane, a scipy uniform_filter(17, mode='nearest')
     box smooth (verified == ops.dual_band._smooth to f32 eps), and the
-    sigmoid band mix. Until now dual was gated only against its own parts
-    (dual == two singles, Pallas blend == XLA blend) — this pins the blend
-    SEMANTICS (center choice, sigmoid orientation, smoothing) externally."""
-    from scipy import ndimage
-
+    sigmoid band mix (G.dual_band_ref) — this pins the blend SEMANTICS
+    (center choice, sigmoid orientation, smoothing) externally."""
     import jax.numpy as jnp
 
     from tests.golden import numpy_ref as G
@@ -200,21 +97,17 @@ def test_dual_band_matches_independent_float64_oracle():
     imgs = np.stack([synthetic_plane(h, w, seed=s) for s in (3, 4)])
     sig_fore, sig_back, thr, crossover = 256.0, 64.0, 12.0, 100.0
 
-    want = []
-    for img in imgs.astype(np.float64):
-        fore = G.log_space_fft_filtering_ref(
-            img, wavelet_name="db3", level=None, sigma=sig_fore,
-            max_threshold=thr,
-        )[:h, :w]
-        back = G.log_space_fft_filtering_ref(
-            img, wavelet_name="db3", level=None, sigma=sig_back,
-            max_threshold=thr,
-        )[:h, :w]
-        center = G.threshold_otsu_ref(img.astype(np.float32))
-        frac = 1.0 / (1.0 + np.exp(-(img - center) / crossover))
-        frac = ndimage.uniform_filter(frac, size=17, mode="nearest")
-        want.append(fore * frac + back * (1.0 - frac))
-    want = np.stack(want)
+    want = np.stack([
+        G.dual_band_ref(
+            img,
+            {"wavelet": "db3", "level": None, "sigma": sig_fore,
+             "max_threshold": thr},
+            {"wavelet": "db3", "level": None, "sigma": sig_back,
+             "max_threshold": thr},
+            crossover=crossover,
+        )
+        for img in imgs.astype(np.float64)
+    ])
 
     plan = _dual_plan(h, w, "db3", None, sig_fore, sig_back, thr)
     got = np.asarray(dual_band_destripe_batch(
@@ -229,49 +122,20 @@ def test_dual_band_matches_independent_float64_oracle():
     assert p > 80, f"dual-band PSNR vs float64 oracle too low: {p:.1f} dB"
 
 
-def test_pallas_blend_uint16_ingest_bitexact():
-    """Integer-valued planes through the u16 ingest (pad stays uint16, the
-    kernel converts in-VMEM) must blend bit-identically to the f32 call —
-    every 16-bit value is exactly representable, so the sigmoid sees the
-    same bits."""
-    import jax.numpy as jnp
-
-    from aind_smartspim_destripe_tpu.ops import pallas_blend
-
-    rng = np.random.default_rng(41)
-    B, H, W = 2, 200, 260
-    x16 = rng.integers(0, 65536, size=(B, H, W), dtype=np.uint16)
-    fore = rng.normal(scale=300.0, size=(B, H, W)).astype(np.float32) + 500
-    back = rng.normal(scale=300.0, size=(B, H, W)).astype(np.float32) + 500
-    centers = rng.uniform(100.0, 4000.0, (B,)).astype(np.float32)
-    f32 = np.asarray(pallas_blend.blend_smooth_mix(
-        jnp.asarray(x16.astype(np.float32)), jnp.asarray(fore),
-        jnp.asarray(back), jnp.asarray(centers), 100.0, interpret=True,
-    ))
-    u16 = np.asarray(pallas_blend.blend_smooth_mix(
-        jnp.asarray(x16), jnp.asarray(fore), jnp.asarray(back),
-        jnp.asarray(centers), 100.0, interpret=True,
-    ))
-    np.testing.assert_array_equal(u16, f32)
-
-
-@pytest.mark.parametrize("no_pallas", [False, True])
-def test_dual_band_uint16_input_bitexact(monkeypatch, no_pallas):
+@pytest.mark.parametrize("fixed_threshold", [False, True])
+def test_dual_band_uint16_input_bitexact(fixed_threshold):
     """The full dual step fed raw uint16 (the production pipeline's dtype)
-    must reproduce the f32-fed output bit-for-bit on BOTH the fused-kernel
-    path (in-VMEM conversion) and the XLA fallback (cast in blend_bands_xla
-    / the otsu vmap)."""
+    must reproduce the f32-fed output bit-for-bit, with the per-plane Otsu
+    blend center and with a fixed one (every 16-bit value is exactly
+    representable in float32, so the cast inside the graph is lossless)."""
     import jax.numpy as jnp
 
     from aind_smartspim_destripe_tpu.ops.dual_band import (
         _dual_plan, dual_band_destripe_batch,
     )
 
-    if no_pallas:
-        monkeypatch.setenv("DESTRIPE_NO_PALLAS", "1")
-    else:
-        monkeypatch.setenv("DESTRIPE_PALLAS_INTERPRET", "1")
-    h, w = 560, 720  # above the band + blend size gates
+    threshold = 420.0 if fixed_threshold else -1.0
+    h, w = 560, 720
     rng = np.random.default_rng(17)
     x16 = np.clip(
         400 + (rng.normal(size=(1, h, 1)) * 60) * np.ones((1, 1, w))
@@ -280,8 +144,46 @@ def test_dual_band_uint16_input_bitexact(monkeypatch, no_pallas):
     plan = _dual_plan(h, w, "db3", None, 256.0, 128.0, 12.0)
     consts = plan.constants()
     got16 = np.asarray(dual_band_destripe_batch(
-        plan, jnp.asarray(x16), 100.0, -1.0, consts=consts))
+        plan, jnp.asarray(x16), 100.0, threshold, consts=consts))
     got32 = np.asarray(dual_band_destripe_batch(
-        plan, jnp.asarray(x16.astype(np.float32)), 100.0, -1.0,
+        plan, jnp.asarray(x16.astype(np.float32)), 100.0, threshold,
         consts=consts))
     np.testing.assert_array_equal(got16, got32)
+
+
+@pytest.mark.parametrize(
+    "shape,crossover",
+    [
+        ((2, 200, 260), 100.0),  # ragged rows and lanes
+        ((1, 64, 128), 100.0),  # aligned
+        ((3, 17, 40), 25.0),  # smaller than the 17-wide window
+        ((2, 131, 67), 400.0),  # odd extents, wide sigmoid
+    ],
+)
+def test_blend_bands_xla_matches_float64_blend(shape, crossover):
+    """blend_bands_xla (sigmoid foreground fraction -> 17x17 edge-replicated
+    box smooth -> band mix) against the same blend composed in float64
+    with scipy's uniform_filter(mode='nearest')."""
+    import jax.numpy as jnp
+    from scipy import ndimage
+
+    from aind_smartspim_destripe_tpu.ops.dual_band import blend_bands_xla
+
+    rng = np.random.default_rng(sum(shape))
+    x = rng.uniform(0.0, 4000.0, shape).astype(np.float32)
+    fore = (x * 0.9 + rng.normal(size=shape) * 5).astype(np.float32)
+    back = (x * 1.1 + rng.normal(size=shape) * 5).astype(np.float32)
+    centers = rng.uniform(100.0, 4000.0, (shape[0],)).astype(np.float32)
+
+    got = np.asarray(blend_bands_xla(
+        jnp.asarray(x), jnp.asarray(fore), jnp.asarray(back),
+        jnp.asarray(centers), crossover, 8,
+    ))
+    want = np.empty(shape)
+    for b in range(shape[0]):
+        xb = x[b].astype(np.float64)
+        frac = 1.0 / (1.0 + np.exp(-(xb - centers[b]) / crossover))
+        frac = ndimage.uniform_filter(frac, size=17, mode="nearest")
+        want[b] = fore[b] * frac + back[b] * (1.0 - frac)
+    assert got.shape == shape and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-2)

@@ -189,10 +189,10 @@ def test_destripe_zarr_dual_e2e(tmp_path):
     assert journal["meta"]["dual"] is True
 
 
-def test_destripe_zarr_dual_halo_route_e2e(tmp_path, monkeypatch):
-    """destripe_zarr in dual mode through the auto-selected Y-halo route
-    (threshold forced below the plane size): store contents match the
-    plane-sharded dual run to <= 1 LSB and the journal still pins dual."""
+def test_destripe_zarr_dual_sharded_e2e(tmp_path):
+    """destripe_zarr in dual mode over every local device (planes sharded
+    over the mesh): store contents match the single-device dual run to
+    <= 1 LSB and the journal still pins dual."""
     if len(jax.local_devices()) < 2:
         pytest.skip("needs the multi-device CPU mesh")
     from aind_smartspim_destripe_tpu import zarr_destriper as zd
@@ -206,9 +206,7 @@ def test_destripe_zarr_dual_halo_route_e2e(tmp_path, monkeypatch):
     lvl0[:] = vol[None, None]
 
     outs = {}
-    for tag in ("plane", "halo"):
-        if tag == "halo":
-            monkeypatch.setenv("DESTRIPE_HALO_THRESHOLD_BYTES", "1024")
+    for tag in ("one", "all"):
         results = tmp_path / f"results_{tag}"
         results.mkdir()
         zd.destripe_zarr(
@@ -230,24 +228,22 @@ def test_destripe_zarr_dual_halo_route_e2e(tmp_path, monkeypatch):
                 "cells_config": CELLS,
                 "dual_band": True,
             },
-            devices=jax.local_devices()[:1] if tag == "plane" else None,
+            devices=jax.local_devices()[:1] if tag == "one" else None,
         )
-        if tag == "halo":
-            monkeypatch.delenv("DESTRIPE_HALO_THRESHOLD_BYTES")
         outs[tag] = np.asarray(
             open_zarr(
                 str(results / "Ex_488_Em_525" / "100000_200000.zarr")
             )["0"][:]
         )[0, 0]
 
-    _assert_lsb(outs["halo"], outs["plane"])
-    assert outs["halo"].any()
+    _assert_lsb(outs["all"], outs["one"])
+    assert outs["all"].any()
 
     import json
 
     journal = json.loads(
         (
-            tmp_path / "results_halo" / "Ex_488_Em_525"
+            tmp_path / "results_all" / "Ex_488_Em_525"
             / "100000_200000.zarr" / "0" / ".destripe_journal.json"
         ).read_text()
     )

@@ -1,5 +1,5 @@
 """
-Foreign-input compatibility (VERDICT r1 missing #5/#6): multi-page/BigTIFF
+Foreign-input compatibility: multi-page/BigTIFF
 reading and zarr v2 filter chains that the reference consumed via
 tifffile/zarr-python (reference readers.py:85, zarr_destriper.py:1027-1035).
 """

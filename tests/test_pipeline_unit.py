@@ -87,8 +87,8 @@ def test_journal_invalidated_by_config_change(tmp_path):
 
 def test_wrap_cast_out_of_range(tmp_path):
     """Out-of-range filter output must wrap like numpy astype (65537 -> 1),
-    not saturate like a bare XLA cast (ADVICE round 1: device path diverged
-    from the reference's float-into-uint16-zarr write on bright pixels)."""
+    not saturate like a bare XLA cast (the reference writes float into a
+    uint16 zarr, which wraps bright pixels)."""
     from aind_smartspim_destripe_tpu.runtime.pipeline import make_device_step
 
     plan = _plan()
@@ -183,16 +183,18 @@ def test_2d_input_rejected(tmp_path):
         StreamingDestriper(Fake(), out, _plan())
 
 
-def test_pipeline_band_graph_interpret(tmp_path, monkeypatch):
-    """The streaming pipeline's device step (fused flat-field epilogue on
-    the banded Pallas path) through the interpreter — the CI twin of the
-    on-chip production runs. Compares against the dense-path pipeline
-    output at the 60 dB golden gate."""
-    h, w, z = 640, 704, 4  # band-eligible geometry, small z
+def test_pipeline_band_graph_interpret(tmp_path):
+    """The streaming pipeline's device step (destripe graph + flat-field
+    epilogue) at a 640x704 geometry through zarr in and out, against the
+    float64 oracle of the reference pipeline at the 60 dB golden gate."""
+    from tests.golden import numpy_ref as G
+
+    h, w, z = 640, 704, 4
+    cells = {"wavelet": "db3", "level": None, "sigma": 64, "max_threshold": 3}
+    no_cells = {"wavelet": "db3", "level": None, "sigma": 128,
+                "max_threshold": 12}
     plan = build_plan(
-        h, w,
-        FilterConfig(sigma=64, max_threshold=3),
-        FilterConfig(sigma=128, max_threshold=12),
+        h, w, FilterConfig.from_dict(cells), FilterConfig.from_dict(no_cells)
     )
     rng = np.random.default_rng(1)
     vol = np.clip(
@@ -202,35 +204,28 @@ def test_pipeline_band_graph_interpret(tmp_path, monkeypatch):
     flat = np.full((h, w), 1.2, np.float32)
     dark = np.full((h, w), 4.0, np.float32)
 
-    def run(sub):
-        inp = ZarrArray.create(
-            str(tmp_path / sub / "in"), (z, h, w), (z, h, w), np.uint16
+    inp = ZarrArray.create(str(tmp_path / "in"), (z, h, w), (z, h, w),
+                           np.uint16)
+    inp[:] = vol
+    out = ZarrArray.create(str(tmp_path / "out"), (z, h, w), (z, h, w),
+                           np.uint16)
+    StreamingDestriper(
+        inp, out, plan, flatfield=flat, darkfield=dark,
+        slab=z, device_batch=z, journal=False,
+    ).run()
+    got = out[:]
+
+    for i in range(z):
+        want = G.flatfield_correction_ref(
+            G.filter_stripes_ref(
+                vol[i].astype(np.float64), cells_config=cells,
+                no_cells_config=no_cells, microscope_high_int=2500.0,
+            ),
+            flat.astype(np.float64), dark.astype(np.float64),
         )
-        inp[:] = vol
-        out = ZarrArray.create(
-            str(tmp_path / sub / "out"), (z, h, w), (z, h, w), np.uint16
-        )
-        StreamingDestriper(
-            inp, out, plan, flatfield=flat, darkfield=dark,
-            slab=z, device_batch=z, journal=False,
-        ).run()
-        return out[:]
-
-    import os
-
-    os.environ["DESTRIPE_NO_PALLAS"] = "1"
-    try:
-        want = run("dense")
-    finally:
-        del os.environ["DESTRIPE_NO_PALLAS"]
-
-    monkeypatch.setenv("DESTRIPE_PALLAS_INTERPRET", "1")
-    assert "band0" in plan.constants()
-    got = run("band")
-
-    mse = np.mean((got.astype(np.float64) - want.astype(np.float64)) ** 2)
-    psnr = np.inf if mse == 0 else 10 * np.log10(65535.0**2 / mse)
-    assert psnr >= 60.0, f"pipeline band-vs-dense PSNR {psnr:.1f} dB < 60"
+        mse = np.mean((got[i].astype(np.float64) - want) ** 2)
+        psnr = np.inf if mse == 0 else 10 * np.log10(65535.0**2 / mse)
+        assert psnr >= 60.0, f"plane {i}: PSNR {psnr:.1f} dB < 60"
 
 
 def test_concurrent_unaligned_slab_writes_no_lost_planes(tmp_path):

@@ -16,9 +16,21 @@ from aind_smartspim_destripe_tpu.io.writers import imsave
 from aind_smartspim_destripe_tpu.io.zarr import group, open_zarr
 
 H, W, Z = 96, 128, 16
+# tile name -> laser side is LASER_TILES; the dark is a constant field
+TILES = ("471320_461360", "489620_461360")
+LASER_TILES = {"0": ["471320_461360"], "1": ["489620_461360"]}
+CAPSULE_DARK = 3
 
 
-def build_capsule(tmp):
+def build_capsule(tmp, h=H, w=W, z=Z, seed=1, chunks=(1, 1, 8, 64, 64),
+                  bright_odd=False):
+    """Write a synthetic capsule input tree under ``tmp``: two tiles (one per
+    laser side) of ``z`` striped uint16 planes of ``h`` x ``w`` in a
+    blosc-zstd zarr with ``chunks``, the per-side estimated flats and the
+    derivatives dark. Planes are dim (~280, the no-cells classifier
+    branch); with ``bright_odd`` every odd plane is bright (~3200, the
+    cells branch). Volumes are written one z-chunk at a time, so memory
+    stays at one slab whatever ``z``. Returns (data, results) folders."""
     data = tmp / "data"
     results = tmp / "results"
     (data / "derivatives").mkdir(parents=True)
@@ -34,44 +46,52 @@ def build_capsule(tmp):
         ]
     }
     (data / "acquisition.json").write_text(json.dumps(acq))
-    (data / "laser_tiles.json").write_text(
-        json.dumps({"0": ["471320_461360"], "1": ["489620_461360"]})
-    )
+    (data / "laser_tiles.json").write_text(json.dumps(LASER_TILES))
 
     # estimated flats: one per laser side (imsave writes .tiff; the capsule
     # convention expects .tif, so rename)
     for side in (0, 1):
         # estimated flats are ~[1, 2] float tiffs (normalize_image output)
-        flat_img = np.full((H, W), 1.0 + 0.25 * side, np.float32)
-        imsave(str(data / f"flat_{side}.tiff"), flat_img)
+        imsave(str(data / f"flat_{side}.tiff"), capsule_flat(h, w, side))
         os.replace(
             str(data / f"flat_{side}.tiff"),
             str(data / f"estimated_flat_laser_Ex_488_Em_525_{side}.tif"),
         )
 
     imsave(str(data / "derivatives" / "DarkMaster_cropped.tiff"),
-           np.full((H, W), 3, np.uint16))
+           np.full((h, w), CAPSULE_DARK, np.uint16))
     os.replace(
         str(data / "derivatives" / "DarkMaster_cropped.tiff"),
         str(data / "derivatives" / "DarkMaster_cropped.tif"),
     )
 
-    rng = np.random.default_rng(1)
+    rng = np.random.default_rng(seed)
     ch = data / "Ex_488_Em_525"
-    for tile in ("471320_461360", "489620_461360"):
-        vol = np.clip(
-            280
-            + (rng.normal(size=(Z, H, 1)) * 50) * np.ones((1, 1, W))
-            + rng.normal(size=(Z, H, W)) * 8,
-            0,
-            65535,
-        ).astype(np.uint16)
+    zc = chunks[2]
+    for tile in TILES:
         tg = group(str(ch / f"{tile}.zarr"))
         lvl0 = tg.create_dataset(
-            0, shape=(1, 1, Z, H, W), chunks=(1, 1, 8, 64, 64), dtype=np.uint16
+            0, shape=(1, 1, z, h, w), chunks=chunks, dtype=np.uint16
         )
-        lvl0[:] = vol[None, None]
+        for z0 in range(0, z, zc):
+            n = min(zc, z - z0)
+            level = np.full((n, 1, 1), 280.0, np.float32)
+            if bright_odd:
+                level[(np.arange(z0, z0 + n) % 2 == 1)] = 3200.0
+            slab = (
+                level
+                + rng.standard_normal((n, h, 1), dtype=np.float32) * 50
+                + rng.standard_normal((n, h, w), dtype=np.float32) * 8
+            )
+            lvl0[0:1, 0:1, z0:z0 + n] = np.clip(
+                slab, 0, 65535
+            ).astype(np.uint16)[None, None]
     return data, results
+
+
+def capsule_flat(h, w, side):
+    """The estimated flat of laser ``side`` written by :func:`build_capsule`."""
+    return np.full((h, w), 1.0 + 0.25 * side, np.float32)
 
 
 @pytest.mark.slow
@@ -83,7 +103,7 @@ def test_run_capsule_end_to_end(tmp_path):
         scratch_folder=str(tmp_path / "scratch"),
     )
 
-    for tile in ("471320_461360", "489620_461360"):
+    for tile in TILES:
         tile_group = open_zarr(
             str(results / "destriped_data" / "Ex_488_Em_525" / f"{tile}.zarr")
         )

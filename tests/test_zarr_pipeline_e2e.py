@@ -372,7 +372,7 @@ def test_compute_pyramid_levels():
 def test_compute_multiscale_3d_output(tmp_path):
     """3-D (ZYX) outputs: chunks must align to trailing axes (not (1,1,64))
     and omero metadata must describe ONE channel, not shape[1]=Y entries
-    (round-1 bugs, VERDICT weak #3)."""
+    (regressions of earlier bugs)."""
     z, h, w = 16, 32, 48
     tile = group(str(tmp_path / "t.zarr"))
     lvl0 = tile.create_dataset(0, shape=(z, h, w), chunks=(8, 16, 16), dtype=np.uint16)
